@@ -1,0 +1,201 @@
+"""Attention primitives and blocks (reference: src/s2m2/core/model/attentions.py).
+
+All LayerNorms are affine-free pre-norms. Blocks take and return NCHW maps
+and run their sublayers on channel-last tokens. Two families:
+
+- scanline (1D) attention: every image row is an independent sequence, so
+  rows fold into the batch axis: (B, C, H, W) -> (B*H, W, C) tokens;
+- global (2D) attention over the H*W tokens of the 1/32 bottleneck, with the
+  factorized sinc relative PE on the feature pyramid's encoder blocks and
+  weight-shared bidirectional cross-view attention in the MRT.
+
+Every attention without PE goes through `ops.flash_attention` (the CUDA
+kernels on a card). The PE branch needs the probability matrix itself, so
+it stays matmul + softmax.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import layers
+from .layers import Linear
+from .pe import pe_contract
+from ..ops import flash_attention as fa
+
+
+def _fold_heads(x, num_heads):
+    """(B, N, H*d) -> (B*H, N, d), contiguous."""
+    b, n, e = x.shape
+    d = e // num_heads
+    # reshape may return a strided view (e.g. at b == 1): the kernels take
+    # contiguous tensors
+    return x.reshape(b, n, num_heads, d).transpose(1, 2).reshape(
+        b * num_heads, n, d).contiguous()
+
+
+def _unfold_heads(x, num_heads):
+    """(B*H, N, d) -> (B, N, H*d)."""
+    if num_heads == 1:
+        return x
+    bh, n, d = x.shape
+    return x.reshape(bh // num_heads, num_heads, n, d).transpose(1, 2).reshape(
+        bh // num_heads, n, num_heads * d)
+
+
+class SelfAttn(nn.Module):
+    """Multi-head self attention on (B, N, C) tokens (reference: attentions.py:8-54)."""
+
+    def __init__(self, d, num_heads, e=1, use_pe=False, pe_dim=32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = Linear(d, e * d, bias=False)
+        self.k = Linear(d, e * d, bias=False)
+        self.v = Linear(d, e * d)
+        self.proj = Linear(e * d, d, bias=False)
+        if use_pe:
+            self.pe_proj = Linear(pe_dim, e * d // num_heads)
+
+    def forward(self, x, pe=None):
+        """pe: None, or (ty, tx, h, w), the factorized relative-PE context."""
+        nh = self.num_heads
+        q = _fold_heads(self.q(x), nh)
+        k = _fold_heads(self.k(x), nh)
+        v = _fold_heads(self.v(x), nh)
+        if pe is None:
+            out = fa.scanline_attention(q, k, v)
+        else:
+            ty, tx, h, w = pe
+            scale = q.shape[-1] ** -0.5
+            score = torch.matmul(q * scale, k.transpose(-1, -2))
+            attn = torch.softmax(score.float(), dim=-1).to(v.dtype)
+            out = torch.matmul(attn, v)
+            pe_sum = pe_contract(attn, ty, tx, h, w).to(v.dtype)
+            out = out + self.pe_proj(pe_sum)
+        return self.proj(_unfold_heads(out, nh))
+
+
+class CrossAttn(nn.Module):
+    """Symmetric weight-shared bidirectional cross attention on the packed
+    (left | right) batch (reference: attentions.py:57-96). The views share
+    Q/K/V weights, so each projection runs once on both views."""
+
+    def __init__(self, d, num_heads, e=1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = Linear(d, e * d, bias=False)
+        self.k = Linear(d, e * d, bias=False)
+        self.v = Linear(d, e * d)
+        self.proj = Linear(e * d, d, bias=False)
+
+    def forward(self, xy):
+        """xy: (2*b0, N, C), left view first on the batch axis."""
+        nh = self.num_heads
+        q = _fold_heads(self.q(xy), nh)
+        k = _fold_heads(self.k(xy), nh)
+        v = _fold_heads(self.v(xy), nh)
+        h0 = q.shape[0] // 2  # the left view's rows come first after folding
+        ox, oy = fa.scanline_cross_attention(q[:h0], k[:h0], v[:h0],
+                                             q[h0:], k[h0:], v[h0:])
+        return self.proj(_unfold_heads(torch.cat([ox, oy], dim=0), nh))
+
+
+class FFN(nn.Module):
+    """Pre-norm MLP with exact GELU and a residual (reference: attentions.py:229-250)."""
+
+    def __init__(self, d, e=1):
+        super().__init__()
+        self.ffn = nn.Sequential(Linear(d, e * d), nn.GELU(), Linear(e * d, d))
+
+    def forward(self, z):
+        return self.ffn(layers.layer_norm(z)) + z
+
+
+class SelfAttnBlock(nn.Module):
+    """Pre-norm self attention + residual on (B, N, C) tokens."""
+
+    def __init__(self, d, num_heads, e=1, use_pe=False):
+        super().__init__()
+        self.attn = SelfAttn(d, num_heads, e, use_pe)
+
+    def forward(self, z, pe=None):
+        return self.attn(layers.layer_norm(z), pe) + z
+
+
+class CrossAttnBlock(nn.Module):
+    """Pre-norm bidirectional cross attention + residual on packed tokens."""
+
+    def __init__(self, d, num_heads, e=1):
+        super().__init__()
+        self.attn = CrossAttn(d, num_heads, e)
+
+    def forward(self, z):
+        return self.attn(layers.layer_norm(z)) + z
+
+
+def _rows(z):
+    """(B, C, H, W) -> (B*H, W, C) scanline tokens."""
+    b, c, h, w = z.shape
+    return z.permute(0, 2, 3, 1).reshape(b * h, w, c)
+
+
+def _unrows(t, b, h):
+    bh, w, c = t.shape
+    return t.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+
+
+class BasicAttnBlock(nn.Module):
+    """Scanline cross + FFN + self + FFN (reference: attentions.py:324-355).
+    z: (2B, C, H, W), left view first on the batch axis."""
+
+    def __init__(self, d, num_heads, e=1):
+        super().__init__()
+        self.cross_attn = CrossAttnBlock(d, num_heads, e)
+        self.self_attn = SelfAttnBlock(d, num_heads, e)
+        self.ffn_c = FFN(d, e)
+        self.ffn = FFN(d, e)
+
+    def forward(self, z):
+        b, _, h, _ = z.shape
+        t = _rows(z)
+        t = self.cross_attn(t)
+        t = self.ffn_c(t)
+        t = self.self_attn(t)
+        t = self.ffn(t)
+        return _unrows(t, b, h)
+
+
+class GlobalAttnBlock(nn.Module):
+    """[cross + FFN] + self + FFN over the H*W tokens of a 2D map
+    (reference: attentions.py:284-321)."""
+
+    def __init__(self, d, num_heads, e=1, use_cross_attn=False, use_pe=False):
+        super().__init__()
+        self.self_attn = SelfAttnBlock(d, num_heads, e, use_pe)
+        self.ffn = FFN(d, e)
+        if use_cross_attn:
+            self.cross_attn = CrossAttnBlock(d, num_heads, e)
+            self.ffn_c = FFN(d, e)
+
+    def forward(self, z, pe=None):
+        """pe: None, or the (ty, tx) per-axis tables of `pe.pe_tables`."""
+        b, c, h, w = z.shape
+        t = z.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if hasattr(self, "cross_attn"):
+            t = self.ffn_c(self.cross_attn(t))
+        t = self.self_attn(t, None if pe is None else (pe[0], pe[1], h, w))
+        t = self.ffn(t)
+        return t.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+
+
+class ConvBlock2D(nn.Module):
+    """3x3 MLP-conv + 1x1 MLP-conv, summed, no residual (reference:
+    attentions.py:255-281)."""
+
+    def __init__(self, d, e=1, k=3):
+        super().__init__()
+        self.convs = layers.mlp2(d, e * d, d, k, k)
+        self.convs_1x = layers.mlp2(d, e * d, d, 1, 1, act=nn.ReLU)
+
+    def forward(self, z):
+        return self.convs(z) + self.convs_1x(z)

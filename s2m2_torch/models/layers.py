@@ -1,0 +1,187 @@
+"""Core NCHW layer primitives and the parameter-holding modules built on them.
+
+Layouts are PyTorch's: activations NCHW, conv weights OIHW, transposed-conv
+weights (I, O, kh, kw), linear weights (out, in). Numerics follow
+`s2m2_tpu.models.layers`:
+
+- normalization statistics run in float32 whatever the compute dtype;
+- the fp32-island rule: a float32 weight meeting a bfloat16 input upcasts the
+  input, so the layer computes and returns float32 (the engine keeps a few
+  precision-critical heads in float32, see runtime/engine.py).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _operands(x, weight, bias):
+    """Apply the fp32-island rule and bring weight and bias to x's dtype."""
+    if weight.dtype == torch.float32 and x.dtype == torch.bfloat16:
+        x = x.float()
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    return x, w, b
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=None):
+    """torch Conv2d with the reference padding convention k//2 per side."""
+    if padding is None:
+        padding = (weight.shape[-2] // 2, weight.shape[-1] // 2)
+    x, w, b = _operands(x, weight, bias)
+    return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+
+def conv_transpose2d(x, weight, bias=None, stride=1, padding=0):
+    """torch ConvTranspose2d; weight (I, O, kh, kw)."""
+    x, w, b = _operands(x, weight, bias)
+    return F.conv_transpose2d(x, w, b, stride=stride, padding=padding)
+
+
+def linear(x, weight, bias=None):
+    """Dense layer on the trailing axis; weight (out, in)."""
+    x, w, b = _operands(x, weight, bias)
+    return F.linear(x, w, b)
+
+
+def gelu(x):
+    """Exact (erf) GELU, torch nn.GELU() default."""
+    return F.gelu(x)
+
+
+def layer_norm(x, weight=None, bias=None, eps=1e-5):
+    """LayerNorm over the last axis with float32 statistics; affine-free when
+    weight is None (the reference's elementwise_affine=False norms)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def group_norm(x, weight, bias, num_groups=8, eps=1e-5):
+    """GroupNorm over NCHW with two-pass float32 statistics.
+
+    The one-pass E[x^2]-mean^2 form loses to cancellation when |mean| >> std;
+    the affine is folded into per-group (a, d) coefficients as the JAX
+    package does, so both packages round alike."""
+    b, c, h, w = x.shape
+    g = num_groups
+    xf = x.float().reshape(b, g, c // g, h, w)
+    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+    var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+    scale = torch.rsqrt(var + eps)
+    a = scale * weight.float().reshape(1, g, c // g, 1, 1)
+    d = bias.float().reshape(1, g, c // g, 1, 1) - mean * a
+    return (xf * a + d).reshape(b, c, h, w).to(x.dtype)
+
+
+def avg_pool2d(x, k=2):
+    """Non-overlapping average pooling (torch nn.AvgPool2d(k))."""
+    return F.avg_pool2d(x, k)
+
+
+def upsample2x_bilinear(x):
+    """Bilinear x2 upsample, half-pixel centers (align_corners=False)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def upsample_nearest(x, factor):
+    """Integer-factor nearest upsample of the two trailing (spatial) axes."""
+    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
+
+
+def replicate_pad(x, pad=1):
+    """Edge-replicate spatial padding of an NCHW tensor."""
+    return F.pad(x, (pad, pad, pad, pad), mode="replicate")
+
+
+def unfold9(x, pad=1):
+    """3x3 neighborhood unfold as 9 shifted slices with replicate padding
+    (reference: core/model/utils.py:9-20). Output channels are tap-major:
+    out[:, t*C:(t+1)*C] is tap (di, dj) with t = di*3 + dj."""
+    h, w = x.shape[-2:]
+    xp = replicate_pad(x, pad)
+    return torch.cat([xp[..., i:i + h, j:j + w] for i in range(3) for j in range(3)],
+                     dim=1)
+
+
+def logit(x, eps):
+    """torch.logit(x, eps) in float32: clamp to [eps, 1-eps], log(p/(1-p))."""
+    xf = x.float().clamp(eps, 1.0 - eps)
+    return torch.log(xf / (1.0 - xf)).to(x.dtype)
+
+
+def logsumexp_stable(x, dim, keepdim=False, eps=1e-30):
+    """Max-shifted log-sum-exp with a clamped sum (reference:
+    submodules.py:147-152)."""
+    m = x.amax(dim=dim, keepdim=True)
+    y = torch.exp(x - m).sum(dim=dim, keepdim=True)
+    y = m + torch.log(y.clamp(min=eps))
+    return y if keepdim else y.squeeze(dim)
+
+
+# --------------------------------------------------------------------------
+# Parameter-holding modules. Parameters are allocated uninitialized: every
+# model is filled from `models.init.init_params` or a checkpoint.
+# --------------------------------------------------------------------------
+
+def _pair(k):
+    return (k, k) if isinstance(k, int) else tuple(k)
+
+
+class Conv(nn.Module):
+    """Conv2d with fixed stride/padding (padding k//2 unless given)."""
+
+    def __init__(self, cin, cout, k, stride=1, padding=None, bias=True):
+        super().__init__()
+        kh, kw = _pair(k)
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class ConvT(nn.Module):
+    """ConvTranspose2d with weight (I, O, kh, kw)."""
+
+    def __init__(self, cin, cout, k, stride=1, padding=0, bias=True):
+        super().__init__()
+        kh, kw = _pair(k)
+        self.weight = nn.Parameter(torch.empty(cin, cout, kh, kw))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x):
+        return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class Linear(nn.Module):
+    def __init__(self, cin, cout, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
+
+
+class Norm(nn.Module):
+    """Holds a (C,) weight and bias for layer_norm or group_norm."""
+
+    def __init__(self, c):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c))
+        self.bias = nn.Parameter(torch.empty(c))
+
+
+def mlp2(c0, c1, c2, k0, k1, act=nn.GELU, bias2=True):
+    """conv -> act -> conv, as the reference's nn.Sequential (keys 0 and 2)."""
+    return nn.Sequential(Conv(c0, c1, k0), act(), Conv(c1, c2, k1, bias=bias2))
