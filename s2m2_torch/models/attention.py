@@ -10,8 +10,9 @@ and run their sublayers on channel-last tokens. Two families:
   weight-shared bidirectional cross-view attention in the MRT.
 
 Every attention without PE goes through `ops.flash_attention` (the CUDA
-kernels on a card). The PE branch needs the probability matrix itself, so
-it stays matmul + softmax.
+kernels on a card), or, for a scanline block with the fused route on,
+through `ops.fused_block`. The PE branch needs the probability matrix
+itself, so it stays matmul + softmax.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from . import layers
 from .layers import Linear
 from .pe import pe_contract
 from ..ops import flash_attention as fa
+from ..ops import fused_block as fb
 
 
 def _fold_heads(x, num_heads):
@@ -146,23 +148,40 @@ def _unrows(t, b, h):
 
 class BasicAttnBlock(nn.Module):
     """Scanline cross + FFN + self + FFN (reference: attentions.py:324-355).
-    z: (2B, C, H, W), left view first on the batch axis."""
+    z: (2B, C, H, W), left view first on the batch axis.
+
+    With `fused` set (by `MRT.set_fused_block`), the whole block is one call
+    of `ops.fused_block` (kernel D on a card); otherwise each sublayer runs
+    on its own, its attentions through kernels A and B."""
 
     def __init__(self, d, num_heads, e=1):
         super().__init__()
+        self.num_heads = num_heads
+        self.fused = False
         self.cross_attn = CrossAttnBlock(d, num_heads, e)
         self.self_attn = SelfAttnBlock(d, num_heads, e)
         self.ffn_c = FFN(d, e)
         self.ffn = FFN(d, e)
 
+    def fused_weights(self):
+        """The 18 weights in the fused kernel's order, as the modules hold them."""
+        c, s = self.cross_attn.attn, self.self_attn.attn
+        f1, f2 = self.ffn_c.ffn, self.ffn.ffn
+        return [c.q.weight, c.k.weight, c.v.weight, c.v.bias, c.proj.weight,
+                f1[0].weight, f1[0].bias, f1[2].weight, f1[2].bias,
+                s.q.weight, s.k.weight, s.v.weight, s.v.bias, s.proj.weight,
+                f2[0].weight, f2[0].bias, f2[2].weight, f2[2].bias]
+
+    def forward_rows(self, t):
+        """The block on (2*B*H, W, C) scanline tokens, left view first."""
+        if self.fused:
+            return fb.fused_basic_attn_block(t, t.shape[0] // 2, self.fused_weights(),
+                                             self.num_heads)
+        return self.ffn(self.self_attn(self.ffn_c(self.cross_attn(t))))
+
     def forward(self, z):
         b, _, h, _ = z.shape
-        t = _rows(z)
-        t = self.cross_attn(t)
-        t = self.ffn_c(t)
-        t = self.self_attn(t)
-        t = self.ffn(t)
-        return _unrows(t, b, h)
+        return _unrows(self.forward_rows(_rows(z)), b, h)
 
 
 class GlobalAttnBlock(nn.Module):

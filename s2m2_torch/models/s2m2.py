@@ -35,9 +35,13 @@ def _nhwc(x):
 
 
 class S2M2(nn.Module):
-    """The whole model; `state_dict()` keys equal the reference's."""
+    """The whole model; `state_dict()` keys equal the reference's.
 
-    def __init__(self, cfg: ModelConfig):
+    fused_block: route the MRT's scanline blocks with C, E <= 512 to the
+    fused BasicAttnBlock (kernel D on a card); `set_fused_block` flips it
+    on a built model."""
+
+    def __init__(self, cfg: ModelConfig, fused_block: bool = False):
         super().__init__()
         self.cfg = cfg
         c = cfg.feature_channels
@@ -46,7 +50,8 @@ class S2M2(nn.Module):
         self.cnn_backbone = CNNEncoder(c)
         self.feat_pyramid = UNet(dims, e, True, cfg.num_transformer * 2,
                                  pe_dim=cfg.pe_dim)
-        self.transformer = StackedMRT(dims, cfg.num_transformer, cfg.num_heads, e)
+        self.transformer = StackedMRT(dims, cfg.num_transformer, cfg.num_heads, e,
+                                      fused_block=fused_block)
         self.disp_init = DispInit(c)
         self.upsample_mask_1x = UpsampleMask1x(c)
         self.upsample_mask_4x_refine = UpsampleMask4x(c)
@@ -54,6 +59,11 @@ class S2M2(nn.Module):
         self.feat_fusion_layer = FeatureFusion(c, 3)
         self.refiner = LocalRefiner(c, dims, e, cfg.radius)
         self.ctx_feat = mlp2(c, c, c, 1, 1)
+
+    def set_fused_block(self, flag: bool):
+        """The counterpart of s2m2_tpu.models.mrt.set_use_fused_block, for this
+        model only."""
+        self.transformer.set_fused_block(flag)
 
     def forward(self, img0, img1, return_aux: bool = False):
         """img0/img1: (B, H, W, 3) in [0,255], H % 32 == W % 32 == 0.

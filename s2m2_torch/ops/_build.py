@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"scanline_attention": 0, "scanline_cross_attention": 0,
-                 "fused_correlation_ot": 0}
+                 "fused_correlation_ot": 0, "fused_basic_attn_block": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()

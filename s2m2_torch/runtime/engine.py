@@ -56,11 +56,14 @@ class StereoEngine:
 
     `device` defaults to "cuda" and the engine never drops to the CPU on its
     own: pass device="cpu" to run the plain PyTorch versions of the kernels.
+    `fused_block=True` runs the MRT's scanline blocks with C, E <= 512 as one
+    fused kernel each (kernel D); `self.model.set_fused_block` flips it.
     """
 
     def __init__(self, model_type_or_cfg="S", *, checkpoint: Optional[str] = None,
                  precision: str = "bf16", use_positivity: bool = True,
-                 refine_iter: int = 3, seed: int = 0, device="cuda"):
+                 refine_iter: int = 3, seed: int = 0, device="cuda",
+                 fused_block: bool = False):
         if isinstance(model_type_or_cfg, ModelConfig):
             self.cfg = model_type_or_cfg
         else:
@@ -84,7 +87,7 @@ class StereoEngine:
         state = init_params(self.cfg, seed=seed)
         if checkpoint:
             state = tolerant_merge(state, load_checkpoint(checkpoint))
-        model = S2M2(self.cfg)
+        model = S2M2(self.cfg, fused_block=fused_block)
         model.load_state_dict(state)
         keep = (fp32_keep_paths(self.cfg)
                 if self.precision.param_dtype != torch.float32 else ())

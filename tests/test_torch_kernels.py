@@ -11,6 +11,7 @@ import torch
 
 from s2m2_torch.ops import _build
 from s2m2_torch.ops import flash_attention as fa
+from s2m2_torch.ops import fused_block as fb
 from s2m2_torch.ops import sinkhorn
 
 torch.set_num_threads(2)
@@ -81,3 +82,30 @@ def test_ot_kernel_matches_plain_on_card(cuda, dtype, use_positivity):
         for a, b in ((prob, prob_w), (cv, cv_w)):
             assert float((a.float() - b.float()).abs().max()) <= \
                 2e-2 * float(b.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pairs,w,c,heads,e", [(3, 24, 16, 4, 1), (2, 33, 48, 4, 1),
+                                               (2, 40, 48, 2, 1), (2, 70, 128, 1, 1),
+                                               (2, 50, 384, 2, 1), (2, 65, 384, 1, 1),
+                                               (3, 20, 8, 1, 2), (2, 9, 512, 4, 1)])
+def test_fused_block_kernel_matches_plain_on_card(cuda, pairs, w, c, heads, e, dtype):
+    """Kernel D at head dims 4 to 384 and odd W: float32 within
+    1e-4 * max(1, max|ref|), bfloat16 within 2e-2 * max|ref|."""
+    from s2m2_torch.models.attention import BasicAttnBlock
+    from s2m2_torch.models.init import _basic_attn_block, _Rng
+    from s2m2_torch.tools.convert import flatten, from_jax
+    blk = BasicAttnBlock(c, heads, e)
+    blk.load_state_dict(from_jax(flatten(_basic_attn_block(_Rng(0), c, heads, e))))
+    wts = [t.detach().to(cuda, dtype) for t in blk.fused_weights()]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rows = torch.randn((2 * pairs, w, c), generator=g, device=cuda).to(dtype)
+    before = _build.launch_counts["fused_basic_attn_block"]
+    got = fb.fused_basic_attn_block(rows, pairs, wts, heads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_basic_attn_block"] == before + 1
+    ref = torch.cat(fb.fused_basic_attn_block_plain(rows[:pairs], rows[pairs:], wts,
+                                                    heads)).float()
+    top = float(ref.abs().max())
+    tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else 2e-2 * top
+    assert float((got.float() - ref).abs().max()) <= tol

@@ -1,6 +1,7 @@
 """The s2m2_torch forward against the reference-torch golden fixtures and
 against the JAX package's forward, plus module-level parity for the modules
-that hold a kernel (attention blocks, the OT matcher)."""
+that hold a kernel (attention blocks, the OT matcher). The forward tests run
+with the fused BasicAttnBlock off (ids as before) and on (ids "-fused")."""
 import glob
 import os
 
@@ -20,7 +21,13 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 FIXTURES = sorted(glob.glob(os.path.join(GOLDEN, "s2m2_*.npz")))
 
 
-def _fixture(path):
+def _with_fused(args, ids):
+    """Each case unfused (its id unchanged), then fused (id + "-fused")."""
+    return ([pytest.param(*a, False, id=i) for a, i in zip(args, ids)]
+            + [pytest.param(*a, True, id=f"{i}-fused") for a, i in zip(args, ids)])
+
+
+def _fixture(path, fused_block=False):
     with np.load(path) as z:
         meta = list(z["__meta"])
         imgs = [np.transpose(z[k], (0, 2, 3, 1)) for k in ("__img0", "__img1")]
@@ -29,7 +36,7 @@ def _fixture(path):
                       refine_iter=int(meta[2]),
                       use_positivity=bool(meta[3]) if len(meta) > 3 else True,
                       output_upsample=bool(meta[4]) if len(meta) > 4 else False)
-    model = S2M2(cfg)
+    model = S2M2(cfg, fused_block=fused_block)
     model.load_state_dict(load_npz(path))
     return cfg, model.eval(), imgs, refs
 
@@ -44,9 +51,10 @@ def _assert_parity(outs, refs):
     assert epe < 1e-3, f"EPE vs reference {epe}"
 
 
-@pytest.mark.parametrize("path", FIXTURES, ids=[os.path.basename(p) for p in FIXTURES])
-def test_forward_matches_reference(path):
-    _, model, imgs, refs = _fixture(path)
+@pytest.mark.parametrize("path,fused_block", _with_fused(
+    [(p,) for p in FIXTURES], [os.path.basename(p) for p in FIXTURES]))
+def test_forward_matches_reference(path, fused_block):
+    _, model, imgs, refs = _fixture(path, fused_block)
     with torch.inference_mode():
         outs = model(*(torch.from_numpy(i) for i in imgs))
     _assert_parity(outs, refs)
@@ -66,7 +74,8 @@ def test_stacked_mrt_multihead_matches_reference():
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
 
 
-def test_forward_matches_jax_forward():
+@pytest.mark.parametrize("fused_block", [False, True], ids=["unfused", "fused"])
+def test_forward_matches_jax_forward(fused_block):
     """Same JAX-initialised c32/NTR1 weights and the same 64x96 pair through
     both packages (the JAX forward runs its default XLA path on the CPU)."""
     from s2m2_tpu.config import ModelConfig as JaxConfig
@@ -83,18 +92,22 @@ def test_forward_matches_jax_forward():
     want = jax.jit(lambda p, a, b: jax_forward(p, a, b, JaxConfig(
         feature_channels=32, num_transformer=1, refine_iter=2)))(
         params, jnp.asarray(img0), jnp.asarray(img1))
-    model = S2M2(cfg)
+    model = S2M2(cfg, fused_block=fused_block)
     model.load_state_dict(from_jax({k: np.asarray(v) for k, v in flatten(params).items()}))
     with torch.inference_mode():
         got = model.eval()(torch.from_numpy(img0), torch.from_numpy(img1))
     _assert_parity(got, [np.asarray(w) for w in want])
 
 
-@pytest.mark.parametrize("fixture", ["s2m2_c32_ntr1.npz", "s2m2_c32_ntr1_neg_up.npz"])
-def test_bf16_drift_vs_fp32(fixture):
+DRIFT_FIXTURES = ["s2m2_c32_ntr1.npz", "s2m2_c32_ntr1_neg_up.npz"]
+
+
+@pytest.mark.parametrize("fixture,fused_block", _with_fused(
+    [(f,) for f in DRIFT_FIXTURES], DRIFT_FIXTURES))
+def test_bf16_drift_vs_fp32(fixture, fused_block):
     """bf16 weights and activations with the engine's fp32 islands stay within
     the drift bounds of tests/test_model_parity.py:115."""
-    cfg, model, imgs, refs = _fixture(os.path.join(GOLDEN, fixture))
+    cfg, model, imgs, refs = _fixture(os.path.join(GOLDEN, fixture), fused_block)
     cast_params(model, torch.bfloat16, fp32_keep_paths(cfg))
     with torch.inference_mode():
         disp, _, _ = model(*(torch.from_numpy(i).bfloat16() for i in imgs))
