@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the s2m2_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card, `nvcc` and
 PyTorch built for CUDA. It imports nothing of JAX or of `s2m2_tpu`. Phases,
@@ -32,10 +32,21 @@ non-zero:
    5, in bf16 with the fused block on, bf16 with it off on the same
    weights, and fp32 with it on; each run's launch counts must equal the
    counts worked out from XL's shapes, and one profiled forward follows it;
-   the fused and unfused bf16 disparities are compared.
+   the fused and unfused bf16 disparities are compared;
+7. int8 path: StereoEngine("XL", precision="int8") at 1216x1024 with the
+   same seeded weights: calibrate on the first pair (decimated to 512 px,
+   as run() does), then 4 requests on phase 5's pairs, then one profiled
+   forward; then S in int8a and int8r, 2 requests each. Each run checks A,
+   B and C against the counts of phase 5/6, D at 0 (the fused route is
+   off), every quantized GEMM of the calibration pass served by kernel E,
+   and E's launches against the forward's own record of its sites.
 
-Then it prints the kernels line, the nvidia-smi line, and as its last line
-{"ok": true, "device": {...}}.
+Kernel E (int8 quantize_pack + int8 GEMM) is held against its plain
+version in phase 3 at the TPU probe's shape, and after phase 7 at every
+site shape one XL int8 forward gives it (with torch._int_mm, which the port
+never calls, as the yardstick of its GEMM); phase 4 also runs the golden
+fixtures under int8 and int8r. Then it prints the kernels line, the
+nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -55,19 +66,30 @@ H, W = 1024, 1216          # the main path's image size
 N_REQUESTS = 8
 N_XL_REQUESTS = 4
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3, bytes/s
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor fp32; dense bf16
+# non-tensor fp32; dense bf16; dense int8 (TOP/s)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 REPLACES = {
     "scanline_attention": "s2m2_tpu/ops/flash_attention.py:58",
     "scanline_cross_attention": "s2m2_tpu/ops/flash_attention.py:101",
     "fused_correlation_ot": "s2m2_tpu/ops/sinkhorn.py:82",
     "fused_basic_attn_block": "s2m2_tpu/ops/fused_block.py:174",
+    "int8_quantize_pack": "scripts/probe_pallas_int8.py:30",
+    "int8_gemm": "scripts/probe_pallas_int8.py:45",
 }
 SOURCES = {
     "scanline_attention": "s2m2_torch/csrc/scanline_attention.cu",
     "scanline_cross_attention": "s2m2_torch/csrc/scanline_attention.cu",
     "fused_correlation_ot": "s2m2_torch/csrc/sinkhorn_ot.cu",
     "fused_basic_attn_block": "s2m2_torch/csrc/fused_basic_attn_block.cu",
+    "int8_quantize_pack": "s2m2_torch/csrc/int8_gemm.cu",
+    "int8_gemm": "s2m2_torch/csrc/int8_gemm.cu",
 }
+N_INT8_S_REQUESTS = 2
+# the JAX package's int8 drift bounds (tests/test_quant.py:186-191)
+GOLDEN_INT8 = (("s2m2_c32_ntr1.npz", "int8", 0.01), ("s2m2_c32_ntr1_neg_up.npz", "int8", 0.08),
+               ("s2m2_c32_ntr1.npz", "int8r", 0.015),
+               ("s2m2_c32_ntr1_neg_up.npz", "int8r", 0.09))
+OUT_DIR = None  # --out DIR: also keep the run's records there
 # launches per XL 1216x1024 forward, by route of the scanline blocks: D
 # takes the 1x and 2x blocks (C = 384); the 1/16-scale blocks (C = 768) and
 # the 2D blocks stay on A and B; C is the matcher
@@ -80,7 +102,12 @@ XL_LAUNCHES = {
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout and, with --out DIR, in DIR/chip_smoke.jsonl."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if OUT_DIR is not None:
+        with open(OUT_DIR / "chip_smoke.jsonl", "a") as f:
+            f.write(line + "\n")
 
 
 def main_path_shapes(cfg, h, w, fused_block=False):
@@ -294,9 +321,47 @@ def phase_kernels(shapes):
     return results
 
 
+def golden_fixture(path):
+    """(cfg, NHWC img0, img1, [disp, occ, conf] references) of a fixture."""
+    from s2m2_torch.config import ModelConfig
+    with np.load(path) as z:
+        meta = list(z["__meta"])
+        img0 = np.transpose(z["__img0"], (0, 2, 3, 1))
+        img1 = np.transpose(z["__img1"], (0, 2, 3, 1))
+        refs = [np.transpose(z[k], (0, 2, 3, 1)) for k in ("__disp", "__occ", "__conf")]
+    cfg = ModelConfig(feature_channels=int(meta[0]), num_transformer=int(meta[1]),
+                      refine_iter=int(meta[2]),
+                      use_positivity=bool(meta[3]) if len(meta) > 3 else True,
+                      output_upsample=bool(meta[4]) if len(meta) > 4 else False)
+    return cfg, img0, img1, refs
+
+
+def phase_golden_int8():
+    """The golden fixtures in int8 and int8r engines on the card (bf16 with
+    the fp32 islands, calibrated on the fixture's pair, kernel E engaged):
+    EPE against the fp32 reference within the JAX package's bounds."""
+    from s2m2_torch.ops import _build
+    from s2m2_torch.runtime.engine import StereoEngine
+    for fixture, precision, bound in GOLDEN_INT8:
+        path = ROOT / "tests" / "golden" / fixture
+        cfg, img0, img1, refs = golden_fixture(path)
+        eng = StereoEngine(cfg, checkpoint=str(path), precision=precision, device="cuda")
+        eng.calibrate(img0, img1)
+        _build.reset_launch_counts()
+        disp = eng.forward_padded(img0, img1)[0].cpu().numpy()
+        counts = {k: _build.launch_counts[k] for k in ("int8_quantize_pack", "int8_gemm")}
+        epe = float(np.abs(disp - refs[0]).mean())
+        ok = bool(epe < bound and min(counts.values()) > 0 and np.isfinite(disp).all())
+        emit({"phase": "golden_int8", "fixture": fixture, "precision": precision,
+              "epe": epe, "bound": bound, "sites": len(eng.quant_scales),
+              "launches": counts, "ok": ok})
+        if not ok:
+            raise AssertionError(f"golden {precision} failed on {fixture}: EPE {epe}, "
+                                 f"launches {counts}")
+
+
 def phase_golden(fused_block):
     import torch
-    from s2m2_torch.config import ModelConfig
     from s2m2_torch.models.s2m2 import S2M2
     from s2m2_torch.ops import _build
     from s2m2_torch.ops.fused_block import supports
@@ -306,15 +371,7 @@ def phase_golden(fused_block):
     if not paths:
         raise FileNotFoundError("no tests/golden/s2m2_*.npz fixtures")
     for path in paths:
-        with np.load(path) as z:
-            meta = list(z["__meta"])
-            img0 = np.transpose(z["__img0"], (0, 2, 3, 1))
-            img1 = np.transpose(z["__img1"], (0, 2, 3, 1))
-            refs = [np.transpose(z[k], (0, 2, 3, 1)) for k in ("__disp", "__occ", "__conf")]
-        cfg = ModelConfig(feature_channels=int(meta[0]), num_transformer=int(meta[1]),
-                          refine_iter=int(meta[2]),
-                          use_positivity=bool(meta[3]) if len(meta) > 3 else True,
-                          output_upsample=bool(meta[4]) if len(meta) > 4 else False)
+        cfg, img0, img1, refs = golden_fixture(path)
         model = S2M2(cfg, fused_block=fused_block)
         model.load_state_dict(load_npz(path))
         model = model.cuda().eval()
@@ -356,6 +413,8 @@ def _stereo_pair(rng, h, w, disp):
 FAMILIES = (("fused block (ours)", ("fused_block_kernel",)),
             ("ours: scanline attention", ("attention_kernel", "attention_mma_kernel")),
             ("ours: correlation + Sinkhorn", ("corr_ot_kernel",)),
+            ("ours: E int8 pack", ("pack_rows_kernel", "pack_im2col_kernel")),
+            ("ours: E int8 GEMM", ("namespace)::gemm_kernel",)),
             ("convolution (cuDNN)", ("fprop", "implicit", "conv", "cudnn", "winograd",
                                      "fft")),
             ("matrix product (cuBLAS)", ("gemm", "cutlass", "cublas", "splitk", "nvjet")),
@@ -493,7 +552,212 @@ def phase_xl(pairs):
              for a, b in zip(disps[("bf16", True)], disps[("bf16", False)])]
     emit({"phase": "xl_fused_vs_unfused", "precision": "bf16",
           "mean_abs_disp_diff_px": float(np.mean(delta)), "per_request": delta})
-    return launches
+    return launches, disps[("bf16", False)]
+
+
+def phase_probe():
+    """Kernel E as the TPU probe runs it (scripts/probe_pallas_int8.py): 8
+    chained (8, 304, 384) @ (384, 384) products, int8 and bf16, against the
+    plain chain. int8 must be bit-equal; bf16 within 2e-2 * max|ref|."""
+    import torch
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((8, 304, 384), generator=g, device="cuda") * 0.1).bfloat16()
+    out = {}
+    for kind in ("int8", "bf16"):
+        if kind == "int8":
+            w = torch.randint(-127, 128, (384, 384), generator=g, device="cuda",
+                              dtype=torch.int8)
+        else:
+            w = (torch.randn((384, 384), generator=g, device="cuda") * 0.05).bfloat16()
+        got, ref = ig.probe_chain(x, w, kind), ig.probe_chain_plain(x, w, kind)
+        err = float((got.float() - ref.float()).abs().max())
+        ok = err == 0 if kind == "int8" else err <= 2e-2 * float(ref.float().abs().max())
+        ops = 2 * ig.PROBE_REPS * 8 * 304 * 384 * 384
+        nbytes = 2 * x.numel() * 2 + w.numel() * w.element_size()
+        rec = {"phase": "kernels", "kernel": "probe_chain", "kind": kind,
+               "shape": [8, 304, 384], "max_abs_err": err, "ok": ok,
+               "ms": time_ms(lambda: ig.probe_chain(x, w, kind)),  # noqa: B023
+               "plain_ms": time_ms(lambda: ig.probe_chain_plain(x, w, kind)),  # noqa: B023
+               "bound_ms": 1e3 * max(nbytes / PEAK_BYTES,
+                                     ops / PEAK_FLOPS["int8" if kind == "int8"
+                                                      else "bfloat16"])}
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"probe_chain {kind}: max|diff| {err}")
+        out[kind] = rec
+    return out
+
+
+def _int8_counts(eng, label, counts, n_requests):
+    """Check one served int8 run: every quantized GEMM that the calibration
+    pass saw ran in each forward, and E's launches match the forward's own
+    record of its packs and GEMMs. Returns (E's launches per forward, the
+    forward's site log)."""
+    from s2m2_torch.models import quant
+    log = quant.last_log()
+    sites = sum(r["kind"] == "gemm_site" for r in log)
+    per = {"int8_quantize_pack": sum(r["kind"] == "pack" for r in log),
+           "int8_gemm": sum(r["kind"] == "gemm" for r in log)}
+    if sites != eng.quant_gemms or min(per.values()) <= 0:
+        raise AssertionError(f"{label}: {sites} quantized GEMMs in the forward, "
+                             f"{eng.quant_gemms} in calibration")
+    for name, n in per.items():
+        if counts[name] != n * n_requests:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, "
+                                 f"expected {n} x {n_requests}")
+    return per, log
+
+
+def phase_int8(shapes, pairs, xl_bf16_disps):
+    """XL int8 at 1216x1024 (4 requests, profiled), then S int8a and int8r
+    (2 requests each). Returns (launches, the XL forward's site log)."""
+    import torch
+    from s2m2_torch.runtime.engine import StereoEngine
+
+    launches = Counter()
+    s_forward = {k: sum(v.values()) for k, v in shapes.items()}
+    runs = [("XL", "int8", pairs[:N_XL_REQUESTS], XL_LAUNCHES[False]),
+            ("S", "int8a", pairs[:N_INT8_S_REQUESTS], s_forward),
+            ("S", "int8r", pairs[:N_INT8_S_REQUESTS], s_forward)]
+    xl_log = None
+    for model, precision, run_pairs, per_forward in runs:
+        eng = StereoEngine(model, precision=precision, seed=0)
+        t0 = time.perf_counter()
+        left, right = run_pairs[0]
+        eng._auto_calibrate(left[None], right[None])  # what run() does first
+        calib_s = time.perf_counter() - t0
+        label = f"{model} {precision}"
+        ms, disps, counts, peak = serve(eng, label, run_pairs, per_forward)
+        per, log = _int8_counts(eng, label, counts, len(run_pairs))
+        launches.update(counts)
+        med = float(np.median(ms))
+        rec = {"phase": "int8_path", "model": model, "precision": precision,
+               "height": H, "width": W, "requests": len(run_pairs), "ms_per_frame": ms,
+               "median_ms": med, "fps": 1e3 / med, "max_memory_allocated": peak,
+               "calibration_s": calib_s, "sites": len(eng.quant_scales),
+               "quantized_gemms": eng.quant_gemms, "e_launches_per_forward": per,
+               "launches": counts}
+        if model == "XL":
+            xl_log = log
+            delta = [float(np.abs(a - b).mean()) for a, b in zip(disps, xl_bf16_disps)]
+            rec["mean_abs_disp_diff_vs_bf16_unfused_px"] = float(np.mean(delta))
+            emit({**profile_forward(eng, precision, *run_pairs[0]), "model": model})
+        emit(rec)
+        del eng
+        torch.cuda.empty_cache()
+    return launches, xl_log
+
+
+def phase_int8_sites(log):
+    """Kernel E at every distinct site shape of one XL int8 forward (from the
+    forward's own record), each against its plain version: the packed rows
+    bit-equal, the GEMM's int32 accumulators bit-equal and its bf16 output
+    within one ulp. Times per forward (each shape's median times its
+    launches), the bound and, for the GEMM, torch._int_mm on the shapes it
+    accepts. Returns the two kernels-line entries; with --out DIR the
+    per-shape records go to DIR/int8_sites.json."""
+    import torch
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    packs, gemms = Counter(), Counter()
+    for r in log:
+        if r["kind"] == "pack":
+            packs[(tuple(r["in_shape"]), r["conv"], r["rows"], r["k"], r["kp"],
+                   r["dtype"])] += 1
+        elif r["kind"] == "gemm":
+            gemms[(r["m"], r["n"], r["k"], r["kp"], r["out"], r["nchw"])] += 1
+    recs = []
+    for (in_shape, conv, rows, k, kp, dtype), count in packs.items():
+        dt = torch.bfloat16 if dtype == "torch.bfloat16" else torch.float32
+        x = torch.randn(in_shape, generator=g, device="cuda").to(dt)
+        inv = 20.0
+        rng_rows = None if conv is None else (0, rows)
+        got = ig.quantize_pack(x, inv, conv=conv, rows=rng_rows)
+        ok = torch.equal(got, ig.quantize_pack_plain(x, inv, conv, rng_rows))
+        if conv is None:
+            in_bytes = rows * k * x.element_size()
+        else:
+            b, _, h, w = in_shape
+            ho, wo = ig.conv_out_hw(h, w, conv)
+            in_bytes = x.numel() * x.element_size() * rows / (b * ho * wo)
+        rec = {"kernel": "int8_quantize_pack", "in_shape": list(in_shape), "conv": conv,
+               "rows": rows, "k": k, "kp": kp, "per_forward": count, "ok": ok,
+               "ms": time_ms(lambda: ig.quantize_pack(x, inv, conv=conv,  # noqa: B023
+                                                      rows=rng_rows), n=10),
+               "plain_ms": time_ms(lambda: ig.quantize_pack_plain(x, inv, conv,  # noqa: B023
+                                                                  rng_rows), n=3, warmup=1),
+               "bound_ms": 1e3 * (in_bytes + rows * kp) / PEAK_BYTES, "by_bytes": True,
+               "max_abs_err": 0.0 if ok else float("inf")}
+        recs.append(rec)
+        del x, got
+    for key, count in gemms.items():
+        m, n, k, kp, out, nchw = key
+        dt = torch.bfloat16 if out == "torch.bfloat16" else torch.float32
+        a = torch.randint(-127, 128, (m, kp), generator=g, device="cuda", dtype=torch.int8)
+        a[:, k:] = 0
+        w = torch.randint(-127, 128, (n, kp), generator=g, device="cuda", dtype=torch.int8)
+        w[:, k:] = 0
+        s_w = torch.rand((n,), generator=g, device="cuda") * 1e-4
+        bias = torch.randn((n,), generator=g, device="cuda")
+        o = torch.empty((1, n, 1, m), dtype=dt, device="cuda") if nchw else None
+        acc_ok = torch.equal(ig.int8_gemm(a, w, out_dtype=torch.int32),
+                             ig.int8_gemm_plain(a, w, out_dtype=torch.int32))
+        got = ig.int8_gemm(a, w, s_w, 0.01, bias, dt, out=o)
+        got = got.reshape(n, m).t() if nchw else got
+        ref = ig.int8_gemm_plain(a, w, s_w, 0.01, bias, dt)
+        diff = (got.float() - ref.float()).abs()
+        big = torch.maximum(got.float().abs(), ref.float().abs()).clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - (7 if dt == torch.bfloat16 else 23))
+        ok = acc_ok and bool((diff <= ulp).all())
+        lib = None
+        if m > 16 and kp % 8 == 0 and n % 8 == 0:
+            try:
+                wt = w.t()
+                torch._int_mm(a, wt)
+                lib = time_ms(lambda: torch._int_mm(a, wt), n=10)  # noqa: B023
+            except RuntimeError:
+                lib = None
+        nbytes = m * kp + n * kp + m * n * got.element_size() + 8 * n
+        ops = 2 * m * n * k
+        rec = {"kernel": "int8_gemm", "m": m, "n": n, "k": k, "kp": kp, "out": out,
+               "nchw": nchw, "per_forward": count, "ok": ok,
+               "max_abs_err": float(diff.max()),
+               "ms": time_ms(lambda: ig.int8_gemm(a, w, s_w, 0.01, bias, dt,  # noqa: B023
+                                                  out=o), n=10),
+               "plain_ms": time_ms(lambda: ig.int8_gemm_plain(a, w, s_w, 0.01,  # noqa: B023
+                                                              bias, dt), n=3, warmup=1),
+               "library_ms": lib,
+               "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_FLOPS["int8"]),
+               "by_bytes": nbytes / PEAK_BYTES >= ops / PEAK_FLOPS["int8"]}
+        recs.append(rec)
+        del a, w, got, ref, diff
+    torch.cuda.empty_cache()
+    if OUT_DIR is not None:
+        (OUT_DIR / "int8_sites.json").write_text(json.dumps(recs))
+    bad = [r for r in recs if not r["ok"]]
+    entries = {}
+    for name in ("int8_quantize_pack", "int8_gemm"):
+        mine = [r for r in recs if r["kernel"] == name]
+        tot = lambda key: sum(r[key] * r["per_forward"] for r in mine)  # noqa: E731
+        by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in mine if r["by_bytes"])
+        lib = [r for r in mine if r.get("library_ms") is not None]
+        entries[name] = {
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
+            "library_ms": (sum(r["library_ms"] * r["per_forward"] for r in lib)
+                           if lib else None),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "shapes": len(mine), "launches_per_forward": sum(r["per_forward"] for r in mine)}
+        if lib:  # the GEMM's own time on the shapes torch._int_mm accepts
+            entries[name]["ms_where_library"] = sum(r["ms"] * r["per_forward"] for r in lib)
+            entries[name]["launches_where_library"] = sum(r["per_forward"] for r in lib)
+        emit({"phase": "kernels", "kernel": name, "at": "XL int8 1216x1024 site shapes",
+              **entries[name]})
+    if bad:
+        raise AssertionError(f"kernel E disagrees with its plain version at "
+                             f"{len(bad)} shapes: {bad[:3]}")
+    return entries
 
 
 def kernels_line(results, launches):
@@ -551,6 +815,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    global OUT_DIR
+    if "--out" in sys.argv[1:-1]:
+        OUT_DIR = Path(sys.argv[sys.argv.index("--out") + 1])
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        (OUT_DIR / "chip_smoke.jsonl").write_text("")
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
@@ -559,16 +828,27 @@ def main():
     with torch.inference_mode():
         results = phase_kernels({**shapes, "fused_basic_attn_block":
                                  xl_blocks["fused_basic_attn_block"]})
+        phase_probe()
     phase_golden(fused_block=False)
     phase_golden(fused_block=True)
+    phase_golden_int8()
     rng = np.random.default_rng(0)
     pairs = [_stereo_pair(rng, H, W, 16 + 8 * i) for i in range(N_REQUESTS)]
     launches = phase_main_path(shapes, pairs)
-    launches.update(phase_xl(pairs[:N_XL_REQUESTS]))
-    for name in results:
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    print(json.dumps({"kernels": kernels_line(results, launches)}))
+    xl_launches, xl_bf16_disps = phase_xl(pairs[:N_XL_REQUESTS])
+    launches.update(xl_launches)
+    int8_launches, xl_int8_log = phase_int8(shapes, pairs, xl_bf16_disps)
+    launches.update(int8_launches)
+    with torch.inference_mode():
+        e_entries = phase_int8_sites(xl_int8_log)
+    line = kernels_line(results, launches)
+    for name, entry in e_entries.items():
+        line.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": launches[name], **entry})
+    for entry in line:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} was not launched on the main path")
+    print(json.dumps({"kernels": line}))
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

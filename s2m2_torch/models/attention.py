@@ -13,13 +13,22 @@ Every attention without PE goes through `ops.flash_attention` (the CUDA
 kernels on a card), or, for a scanline block with the fused route on,
 through `ops.fused_block`. The PE branch needs the probability matrix
 itself, so it stays matmul + softmax.
+
+Inside an int8 context (`quant`), in the JAX package's site order
+(`s2m2_tpu/models/attention.py`): q/k/v read one shared site, as do the
+two branches of a conv block; a multi-head scanline block projects each
+head's attention output through its own row slice of `proj` (one site per
+head, summed in the compute dtype, as JAX's `_attn_4d_sliced`), with q, k,
+v and proj quantized as whole weights; under "int8r" the first three
+sublayers of a scanline block hand their output on as int8. The attention
+cores stay float, and a fused block stays float and holds no site.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from . import layers
+from . import layers, quant
 from .layers import Linear
 from .pe import pe_contract
 from ..ops import flash_attention as fa
@@ -34,6 +43,47 @@ def _fold_heads(x, num_heads):
     # contiguous tensors
     return x.reshape(b, n, num_heads, d).transpose(1, 2).reshape(
         b * num_heads, n, d).contiguous()
+
+
+def _head_weights(attn):
+    """{name: prequantization} of q, k, v and proj: in a quant context the
+    multi-head scanline blocks quantize them as whole weights before they
+    are sliced per head (quant.prequantize_linear); otherwise None, and
+    each module uses its own."""
+    names = ("q", "k", "v", "proj")
+    if attn.sliced and quant.active():
+        return {n: quant.prequantize_linear(getattr(attn, n)) for n in names}
+    return dict.fromkeys(names)
+
+
+def _weight_cols(w_q, sl):
+    """Columns `sl` of a prequantized (N, Kp) weight, zero-padded to a
+    multiple of 32 when the slice is not one."""
+    cols = w_q[:, sl]
+    width = sl.stop - sl.start
+    pad = (width + 31) // 32 * 32 - width
+    return cols if pad == 0 else torch.nn.functional.pad(cols, (0, pad)).contiguous()
+
+
+def _project(attn, out, qw):
+    """attn.proj on the (B*H, N, d) head outputs: one GEMM on the merged
+    heads, or, in a quant context of a multi-head scanline block, one site
+    per head on its row slice of proj, summed in the compute dtype."""
+    nh = attn.num_heads
+    if not (attn.sliced and quant.active()):
+        return attn.proj(_unfold_heads(out, nh), qw)
+    bh, n, d = out.shape
+    heads = out.view(bh // nh, nh, n, d)
+    w = attn.proj.weight
+    acc = None
+    for h in range(nh):
+        sl = slice(h * d, (h + 1) * d)
+        qwh = None if qw is None else (_weight_cols(qw[0], sl), qw[1])
+        y = layers.linear_q(heads[:, h], w[:, sl], None, qwh)
+        acc = y if acc is None else acc + y
+    if attn.proj.bias is not None:
+        acc = acc + attn.proj.bias.to(acc.dtype)
+    return acc
 
 
 def _unfold_heads(x, num_heads):
@@ -55,15 +105,18 @@ class SelfAttn(nn.Module):
         self.k = Linear(d, e * d, bias=False)
         self.v = Linear(d, e * d)
         self.proj = Linear(e * d, d, bias=False)
+        self.sliced = False  # per-head proj sites (multi-head scanline blocks)
         if use_pe:
             self.pe_proj = Linear(pe_dim, e * d // num_heads)
 
     def forward(self, x, pe=None):
         """pe: None, or (ty, tx, h, w), the factorized relative-PE context."""
         nh = self.num_heads
-        q = _fold_heads(self.q(x), nh)
-        k = _fold_heads(self.k(x), nh)
-        v = _fold_heads(self.v(x), nh)
+        x = quant.share_gemm_input(x)
+        qw = _head_weights(self)
+        q = _fold_heads(self.q(x, qw["q"]), nh)
+        k = _fold_heads(self.k(x, qw["k"]), nh)
+        v = _fold_heads(self.v(x, qw["v"]), nh)
         if pe is None:
             out = fa.scanline_attention(q, k, v)
         else:
@@ -74,7 +127,7 @@ class SelfAttn(nn.Module):
             out = torch.matmul(attn, v)
             pe_sum = pe_contract(attn, ty, tx, h, w).to(v.dtype)
             out = out + self.pe_proj(pe_sum)
-        return self.proj(_unfold_heads(out, nh))
+        return _project(self, out, qw["proj"])
 
 
 class CrossAttn(nn.Module):
@@ -89,17 +142,20 @@ class CrossAttn(nn.Module):
         self.k = Linear(d, e * d, bias=False)
         self.v = Linear(d, e * d)
         self.proj = Linear(e * d, d, bias=False)
+        self.sliced = False  # per-head proj sites (multi-head scanline blocks)
 
     def forward(self, xy):
         """xy: (2*b0, N, C), left view first on the batch axis."""
         nh = self.num_heads
-        q = _fold_heads(self.q(xy), nh)
-        k = _fold_heads(self.k(xy), nh)
-        v = _fold_heads(self.v(xy), nh)
+        xy = quant.share_gemm_input(xy)
+        qw = _head_weights(self)
+        q = _fold_heads(self.q(xy, qw["q"]), nh)
+        k = _fold_heads(self.k(xy, qw["k"]), nh)
+        v = _fold_heads(self.v(xy, qw["v"]), nh)
         h0 = q.shape[0] // 2  # the left view's rows come first after folding
         ox, oy = fa.scanline_cross_attention(q[:h0], k[:h0], v[:h0],
                                              q[h0:], k[h0:], v[h0:])
-        return self.proj(_unfold_heads(torch.cat([ox, oy], dim=0), nh))
+        return _project(self, torch.cat([ox, oy], dim=0), qw["proj"])
 
 
 class FFN(nn.Module):
@@ -110,6 +166,7 @@ class FFN(nn.Module):
         self.ffn = nn.Sequential(Linear(d, e * d), nn.GELU(), Linear(e * d, d))
 
     def forward(self, z):
+        z = quant.residual_load(z)
         return self.ffn(layers.layer_norm(z)) + z
 
 
@@ -121,6 +178,7 @@ class SelfAttnBlock(nn.Module):
         self.attn = SelfAttn(d, num_heads, e, use_pe)
 
     def forward(self, z, pe=None):
+        z = quant.residual_load(z)
         return self.attn(layers.layer_norm(z), pe) + z
 
 
@@ -132,6 +190,7 @@ class CrossAttnBlock(nn.Module):
         self.attn = CrossAttn(d, num_heads, e)
 
     def forward(self, z):
+        z = quant.residual_load(z)
         return self.attn(layers.layer_norm(z)) + z
 
 
@@ -162,6 +221,7 @@ class BasicAttnBlock(nn.Module):
         self.self_attn = SelfAttnBlock(d, num_heads, e)
         self.ffn_c = FFN(d, e)
         self.ffn = FFN(d, e)
+        self.cross_attn.attn.sliced = self.self_attn.attn.sliced = num_heads > 1
 
     def fused_weights(self):
         """The 18 weights in the fused kernel's order, as the modules hold them."""
@@ -173,11 +233,16 @@ class BasicAttnBlock(nn.Module):
                 f2[0].weight, f2[0].bias, f2[2].weight, f2[2].bias]
 
     def forward_rows(self, t):
-        """The block on (2*B*H, W, C) scanline tokens, left view first."""
+        """The block on (2*B*H, W, C) scanline tokens, left view first. The
+        fused route stays float in a quant context (no site); under int8r
+        the first three sublayers hand their output on as int8."""
         if self.fused:
             return fb.fused_basic_attn_block(t, t.shape[0] // 2, self.fused_weights(),
                                              self.num_heads)
-        return self.ffn(self.self_attn(self.ffn_c(self.cross_attn(t))))
+        t = quant.residual_store(self.cross_attn(t))
+        t = quant.residual_store(self.ffn_c(t))
+        t = quant.residual_store(self.self_attn(t))
+        return self.ffn(t)
 
     def forward(self, z):
         b, _, h, _ = z.shape
@@ -217,4 +282,5 @@ class ConvBlock2D(nn.Module):
         self.convs_1x = layers.mlp2(d, e * d, d, 1, 1, act=nn.ReLU)
 
     def forward(self, z):
+        z = quant.share_gemm_input(z)  # both branches read one int8 site
         return self.convs(z) + self.convs_1x(z)

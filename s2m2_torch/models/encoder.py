@@ -2,7 +2,7 @@
 
 The plain form of `s2m2_tpu.models.encoder.cnn_encoder_unpacked`: the
 JAX package's space-to-depth rewrites fit the TPU's 128-lane matrix unit
-and compute the same function.
+and compute the same function. Its int8 sites are the packed stem's.
 """
 from __future__ import annotations
 
@@ -18,6 +18,12 @@ class CNNEncoder(nn.Module):
         self.conv0 = layers.mlp2(3, 16, 16, 1, 1)
         self.conv1_down = nn.Sequential(Conv(16, 64, 5, stride=2), nn.GELU(),
                                         Conv(64, c, 3))
+        # int8 sites are judged on the JAX package's packed stem
+        # (s2m2_tpu/models/encoder.py:38-47): pack_pointwise_s2d (2, 2, 3, 64),
+        # pack_pointwise (1, 1, 64, 64), pack_strided_conv (3, 3, 64, 64)
+        self.conv0[0].site_gate = (4 * 3, 3, 4 * 16)
+        self.conv0[2].site_gate = (4 * 16, 4 * 16, 4 * 16)
+        self.conv1_down[0].site_gate = (9 * 4 * 16, 4 * 16, 64)
         self.norm1 = Norm(c)
         self.conv2 = layers.mlp2(c, c, c, 3, 3)
         self.conv2_down = nn.Sequential(Conv(c, c, 3, stride=2))

@@ -7,13 +7,21 @@ weights (I, O, kh, kw), linear weights (out, in). Numerics follow
 - normalization statistics run in float32 whatever the compute dtype;
 - the fp32-island rule: a float32 weight meeting a bfloat16 input upcasts the
   input, so the layer computes and returns float32 (the engine keeps a few
-  precision-critical heads in float32, see runtime/engine.py).
+  precision-critical heads in float32, see runtime/engine.py);
+- inside an int8 context (`quant.observe` / `quant.quantized`) the Conv and
+  Linear modules are sites (JAX `layers.py:67-79`, `:125-134`): the int8
+  path adds the bias in float32 and casts to the input's dtype, and a
+  prequantized weight on the float path is dequantized. A ConvT is a site
+  only where `site_gate` is set (the mask heads, which the JAX package
+  runs as packed convolutions).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import quant
 
 
 def _operands(x, weight, bias):
@@ -43,6 +51,20 @@ def linear(x, weight, bias=None):
     """Dense layer on the trailing axis; weight (out, in)."""
     x, w, b = _operands(x, weight, bias)
     return F.linear(x, w, b)
+
+
+def linear_q(x, weight, bias=None, qw=None):
+    """`linear` with the int8 site hook. qw: the weight's prequantization
+    (w_q, s_w), or None; x may be a `quant.SharedQuantInput`."""
+    if quant.active():
+        k = weight.shape[1]
+        y = quant.gemm_site(x, weight, bias, qw, (k, k, weight.shape[0]))
+        if y is not None:
+            return y
+    x = quant.unwrap(x)
+    if qw is not None:  # a prequantized weight on the float path: dequantize
+        weight = quant.dequantize(qw, weight.shape[1], x.dtype)
+    return linear(x, weight, bias)
 
 
 def gelu(x):
@@ -134,7 +156,13 @@ def _pair(k):
 
 
 class Conv(nn.Module):
-    """Conv2d with fixed stride/padding (padding k//2 unless given)."""
+    """Conv2d with fixed stride/padding (padding k//2 unless given).
+
+    site_gate: the (k_in, cin, cout) shape that decides whether this conv is
+    an int8 site, where the JAX package runs it in a packed form of another
+    shape; None: its own (kh * kw * cin, cin, cout)."""
+
+    int8_prequantizable = True
 
     def __init__(self, cin, cout, k, stride=1, padding=None, bias=True):
         super().__init__()
@@ -143,13 +171,24 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
         self.padding = padding
+        self.site_gate = None
 
     def forward(self, x):
-        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        if quant.active():
+            y = quant.conv_maybe_quantized(x, self)
+            if y is not None:
+                return y
+        x = quant.unwrap(x)
+        w = self.weight
+        qw = quant.prequant_of(self)
+        if qw is not None:  # a prequantized weight on the float path: dequantize
+            w = quant.dequantize(qw, w[0].numel(), x.dtype).reshape(w.shape)
+        return conv2d(x, w, self.bias, self.stride, self.padding)
 
 
 class ConvT(nn.Module):
-    """ConvTranspose2d with weight (I, O, kh, kw)."""
+    """ConvTranspose2d with weight (I, O, kh, kw). An int8 site only where
+    `site_gate` is set (see `quant.conv_transpose_maybe_quantized`)."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, bias=True):
         super().__init__()
@@ -158,19 +197,27 @@ class ConvT(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride = stride
         self.padding = padding
+        self.site_gate = None
 
     def forward(self, x):
-        return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding)
+        y = quant.conv_transpose_maybe_quantized(x, self)
+        if y is not None:
+            return y
+        return conv_transpose2d(quant.unwrap(x), self.weight, self.bias, self.stride,
+                                self.padding)
 
 
 class Linear(nn.Module):
+    int8_prequantizable = True
+
     def __init__(self, cin, cout, bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
 
-    def forward(self, x):
-        return linear(x, self.weight, self.bias)
+    def forward(self, x, qw=None):
+        """qw: a prequantization to use instead of the module's own."""
+        return linear_q(x, self.weight, self.bias, qw or quant.prequant_of(self))
 
 
 class Norm(nn.Module):

@@ -81,13 +81,12 @@ class LocalRefiner(nn.Module):
         conf_logit = layers.logit(conf.float(), eps=1e-2)
         occ_logit = layers.logit(occ.float(), eps=1e-2)
         corr1, corr2 = cost_volume_lookup(cv_state, disp)
-        cat = torch.cat([
-            self.disp_feat((disp / 1e2).to(cdt)),
-            self.corr_feat1(corr1.to(cdt) / 16),
-            self.corr_feat2(corr2.to(cdt) / 16),
-            ctx,
-            self.conf_occ_feat(torch.cat([conf_logit, occ_logit], dim=1).to(cdt)),
-        ], dim=1)
+        # in the JAX package's order, which is the int8 sites' order
+        corr_feat1 = self.corr_feat1(corr1.to(cdt) / 16)
+        corr_feat2 = self.corr_feat2(corr2.to(cdt) / 16)
+        disp_feat = self.disp_feat((disp / 1e2).to(cdt))
+        conf_feat = self.conf_occ_feat(torch.cat([conf_logit, occ_logit], dim=1).to(cdt))
+        cat = torch.cat([disp_feat, corr_feat1, corr_feat2, ctx, conf_feat], dim=1)
         feat = self.disp_corr_ctx_cat(cat.to(cdt))
         refine_feat = self.refine_unet(feat)[0]
         hidden_new = self.gru(hidden, refine_feat)

@@ -2,7 +2,8 @@
 (reference: src/s2m2/core/model/submodules.py:96-145 and s2m2.py:101-133).
 
 The plain forms of `s2m2_tpu/models/upsampling.py`; its `*_packed` forms
-are exact TPU layout rewrites of the same functions.
+are exact TPU layout rewrites of the same functions. The mask heads' int8
+sites are the packed forms' (`site_gate`, `quant.conv_transpose_maybe_quantized`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ class UpsampleMask4x(nn.Module):
         self.conv_y = Conv(c, 64, 3)
         self.conv_concat = nn.Sequential(Conv(128, 128, 3), nn.ReLU(),
                                          ConvT(128, 9, 2, stride=2))
+        # int8 sites of upsample_mask_4x_packed (s2m2_tpu upsampling.py:83-95):
+        # the k2s2 ConvTs run there as 1x1 convs to 4x the channels
+        self.conv_x.site_gate = (c, c, 4 * 64)
+        self.conv_concat[2].site_gate = (128, 128, 4 * 9)
 
     def forward(self, feat_x, feat_y):
         return self.conv_concat(torch.cat([self.conv_x(feat_x), self.conv_y(feat_y)],
@@ -40,6 +45,15 @@ class UpsampleMask1x(nn.Module):
         self.conv_rgb = nn.Sequential(ConvT(3, 16, 3, padding=1), nn.ReLU())
         self.conv_ctx = ConvT(c, 16, 2, stride=2)
         self.conv_concat = nn.Sequential(Conv(48, 48, 3), nn.ReLU(), ConvT(48, 9, 1))
+        # int8 sites of upsample_mask_1x_packed (s2m2_tpu upsampling.py:110-127),
+        # whose convs run on the phase-packed half-resolution grid:
+        # pack_convT3x3 (3, 3, 4, 64) and (3, 3, 12, 64), pack_convT2x2
+        # (1, 1, c, 64), pack_conv_s1 (3, 3, 192, 192), pack_pointwise (1, 1, 192, 36)
+        self.conv_disp[0].site_gate = (9 * 4, 4, 4 * 16)
+        self.conv_rgb[0].site_gate = (9 * 12, 12, 4 * 16)
+        self.conv_ctx.site_gate = (c, c, 4 * 16)
+        self.conv_concat[0].site_gate = (9 * 192, 192, 192)
+        self.conv_concat[2].site_gate = (192, 192, 4 * 9)
 
     def forward(self, disp, rgb, ctx):
         z = torch.cat([self.conv_disp(disp), self.conv_rgb(rgb), self.conv_ctx(ctx)],

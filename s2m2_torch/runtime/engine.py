@@ -5,6 +5,14 @@ and for matmuls (`torch.backends.cudnn.allow_tf32 = False`,
 `torch.set_float32_matmul_precision("highest")`), process-wide. cuDNN's
 default TF32 keeps about three decimal digits, which breaks the golden
 tolerances of the fp32 engine and the fp32 islands of the bf16 engine.
+
+Precisions: "fp32", "bf16", and the int8 engines "int8", "int8a" (only
+128-aligned GEMMs quantized) and "int8r" (int8 plus the int8 residual
+stream of the scanline blocks): a bf16 engine whose qualifying convs and
+linears run as int8 sites (`models/quant.py`, kernel E on the card), with
+static activation scales from a calibration pass (s2m2_tpu/runtime/
+engine.py:95-276). An int8 engine calibrates on its first input or
+raises; it never serves bf16 in place of int8.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, Precision, get_config
+from ..models import quant
 from ..models.init import init_params
 from ..models.s2m2 import S2M2
 from ..tools.convert import load_checkpoint, tolerant_merge
@@ -47,6 +56,9 @@ def cast_params(model: torch.nn.Module, dtype, keep_fp32=()):
     return model
 
 
+PRECISIONS = ("fp32", "bf16", "int8", "int8a", "int8r")
+
+
 class StereoEngine:
     """Owns the model on one device and runs padded inference.
 
@@ -58,6 +70,8 @@ class StereoEngine:
     own: pass device="cpu" to run the plain PyTorch versions of the kernels.
     `fused_block=True` runs the MRT's scanline blocks with C, E <= 512 as one
     fused kernel each (kernel D); `self.model.set_fused_block` flips it.
+    An int8 engine (`precision="int8" | "int8a" | "int8r"`) calibrates on
+    its first input, or on `calibrate()` / `load_calibration()` beforehand.
     """
 
     def __init__(self, model_type_or_cfg="S", *, checkpoint: Optional[str] = None,
@@ -69,12 +83,17 @@ class StereoEngine:
         else:
             self.cfg = get_config(model_type_or_cfg, use_positivity=use_positivity,
                                   refine_iter=refine_iter)
-        if precision.startswith("int8"):
-            raise NotImplementedError(
-                f"precision {precision!r}: int8 is a later slice of the port "
-                "(ROADMAP.md, Queue 1 item 8); use 'fp32' or 'bf16'")
-        if precision not in ("fp32", "bf16"):
-            raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        # int8a: int8 only on 128-aligned GEMMs; int8r: int8 plus the int8
+        # residual stream. Both are per engine and go into every quant
+        # context, so variants coexist in one process.
+        self.precision_name = precision
+        self.quantize = precision.startswith("int8")
+        self.quant_aligned = precision == "int8a"
+        self.quant_residency = precision == "int8r"
+        self.quant_scales = None  # set by calibrate() / load_calibration()
+        self.quant_gemms = 0      # quantized GEMMs the calibration pass saw
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoEngine: CUDA is not available; pass "
@@ -82,7 +101,7 @@ class StereoEngine:
         torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
 
-        self.precision = Precision.bf16() if precision == "bf16" else Precision.fp32()
+        self.precision = Precision.fp32() if precision == "fp32" else Precision.bf16()
         self.compute_dtype = self.precision.compute_dtype
         state = init_params(self.cfg, seed=seed)
         if checkpoint:
@@ -98,15 +117,98 @@ class StereoEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _images(self, img0, img1):
+        return tuple(torch.as_tensor(np.asarray(i, np.float32)).to(self.device,
+                                                                 self.compute_dtype)
+                     for i in (img0, img1))
+
+    def _forward(self, a, b):
+        """The model on device tensors, inside this engine's quant context."""
+        if not self.quantize:
+            return self.model(a, b)
+        if self.quant_scales is None:
+            raise RuntimeError("int8 engine is not calibrated: call calibrate() or "
+                               "load_calibration() (run() and forward_padded() "
+                               "calibrate on their first input)")
+        with quant.quantized(self.quant_scales, aligned=self.quant_aligned,
+                             skip_fp32=True, residency=self.quant_residency):
+            return self.model(a, b)
+
+    @torch.inference_mode()
+    def calibrate(self, img0, img1, percentile=None):
+        """Record each int8 site's max|x| on (already padded) frames and set
+        the static scales amax / 127, the max over all calls so far; then
+        prequantize the weights. percentile (e.g. 99.9): that percentile of
+        |x| instead of the max. Returns the scales."""
+        if not self.quantize:
+            raise RuntimeError(f"calibrate(): a {self.precision_name} engine has no "
+                               "int8 sites")
+        quant.strip_model(self.model)  # observe runs on the float weights
+        with quant.observe(aligned=self.quant_aligned, skip_fp32=True,
+                           residency=self.quant_residency,
+                           percentile=percentile) as obs:
+            self.model(*self._images(img0, img1))
+        if not obs:
+            raise ValueError(
+                "calibrate(): no quantizable GEMM sites in this model under the "
+                "site policy (int8a with no 128-aligned channels?); use bf16")
+        self.quant_gemms = sum(r["kind"] == "gemm_site" for r in quant.last_log())
+        amax = torch.stack(obs).float().cpu().numpy()
+        if self.quant_scales is not None:  # accumulate over calls
+            if len(self.quant_scales) != len(amax):
+                raise ValueError(f"calibrate(): {len(amax)} sites, but the engine's "
+                                 f"scales have {len(self.quant_scales)}")
+            amax = np.maximum(amax, self.quant_scales * np.float32(127.0))
+        self.quant_scales = (amax / np.float32(127.0)).astype(np.float32)
+        self._prequantize()
+        return self.quant_scales
+
+    def _prequantize(self):
+        quant.strip_model(self.model)
+        quant.quantize_model(self.model, aligned=self.quant_aligned, skip_fp32=True)
+
+    def save_calibration(self, path):
+        """Save the int8 activation scales (.npy), as the JAX engine does."""
+        if self.quant_scales is None:
+            raise RuntimeError("nothing to save: the engine is not calibrated")
+        np.save(path, self.quant_scales)
+
+    def load_calibration(self, path):
+        """Load scales from save_calibration (this port's or the JAX
+        engine's, when the site counts agree) and prequantize the weights;
+        the site count is checked when the next forward runs."""
+        if not self.quantize:
+            raise RuntimeError(f"load_calibration(): a {self.precision_name} engine has "
+                               "no int8 sites")
+        self.quant_scales = np.asarray(np.load(path), np.float32)
+        self._prequantize()
+        return self.quant_scales
+
+    def _auto_calibrate(self, img0, img1, max_hw=512):
+        """Calibrate on a copy of the frames decimated to at most max_hw px."""
+        a = np.asarray(img0, np.float32)
+        b = np.asarray(img1, np.float32)
+        step = max(1, int(np.ceil(max(a.shape[1:3]) / max_hw)))
+        self.calibrate(image_pad(a[:, ::step, ::step]), image_pad(b[:, ::step, ::step]))
+
+    @staticmethod
+    def _benchmark_calib_pair():
+        """(left, right) (1, H, W, 3) for calibrating synthetic-input
+        benchmarks: a deterministic synthetic scene (seed 7), as the JAX
+        engine uses when S2M2_CALIB_PAIR is unset; uniform noise has no
+        disparity structure and under-drives the matcher and refiners."""
+        from ..train.data import _random_scene
+        left, right, _ = _random_scene(np.random.default_rng(7), 512, 608, max_disp=96)
+        return left[None], right[None]
+
     @torch.inference_mode()
     def forward_padded(self, img0, img1):
         """Forward on already padded (B, H, W, 3) arrays; returns float32
-        (disp, occ, conf) tensors of shape (B, H, W, 1) on the device."""
-        a = torch.as_tensor(np.asarray(img0, np.float32)).to(self.device,
-                                                             self.compute_dtype)
-        b = torch.as_tensor(np.asarray(img1, np.float32)).to(self.device,
-                                                             self.compute_dtype)
-        return tuple(o.float() for o in self.model(a, b))
+        (disp, occ, conf) tensors of shape (B, H, W, 1) on the device. An
+        uncalibrated int8 engine calibrates on these frames first."""
+        if self.quantize and self.quant_scales is None:
+            self._auto_calibrate(img0, img1)
+        return tuple(o.float() for o in self._forward(*self._images(img0, img1)))
 
     def run(self, left, right):
         """Full pipeline on HWC (or BHWC) images in [0, 255].
@@ -123,6 +225,8 @@ class StereoEngine:
             left, right = left[None], right[None]
         h, w = left.shape[1:3]
         lp, rp = image_pad(left), image_pad(right)
+        if self.quantize and self.quant_scales is None:
+            self._auto_calibrate(lp, rp)  # set-up, outside the timed forward
         self._sync()
         t0 = time.perf_counter()
         out = self.forward_padded(lp, rp)
@@ -145,21 +249,24 @@ class StereoEngine:
     @torch.inference_mode()
     def benchmark(self, height, width, n_warmup=2, n_iter=10, batch=1):
         """Frames per second at a fixed (padded) resolution on synthetic
-        inputs, timed with CUDA events around `n_iter` forwards."""
+        inputs, timed with CUDA events around `n_iter` forwards. An
+        uncalibrated int8 engine first calibrates on `_benchmark_calib_pair`."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark() times the card; this engine is on "
                                f"{self.device}")
+        if self.quantize and self.quant_scales is None:
+            self._auto_calibrate(*self._benchmark_calib_pair())
         g = torch.Generator(device=self.device).manual_seed(0)
         a, b = (torch.rand((batch, height, width, 3), generator=g,
                            device=self.device) * 255 for _ in range(2))
         a, b = a.to(self.compute_dtype), b.to(self.compute_dtype)
         for _ in range(n_warmup):
-            self.model(a, b)
+            self._forward(a, b)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(n_iter):
-            self.model(a, b)
+            self._forward(a, b)
         end.record()
         end.synchronize()
         dt = start.elapsed_time(end) / 1e3 / n_iter

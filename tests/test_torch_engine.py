@@ -47,10 +47,16 @@ def test_engine_keeps_fp32_islands_in_bf16():
 
 
 def test_engine_rejects_int8_and_missing_cuda():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        StereoEngine(SMALL, precision="int8", device="cpu")
+    """An int8 engine never serves without scales (it calibrates first or
+    raises); unknown precisions and a missing card raise."""
+    eng = StereoEngine(SMALL, precision="int8", device="cpu")
+    img = torch.zeros((1, 64, 64, 3))
+    with pytest.raises(RuntimeError, match="not calibrated"):
+        eng._forward(img, img)
     with pytest.raises(ValueError):
         StereoEngine(SMALL, precision="fp16", device="cpu")
+    with pytest.raises(ValueError):
+        StereoEngine(SMALL, precision="int4", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StereoEngine(SMALL)  # the default device is the card
