@@ -12,10 +12,15 @@ non-zero:
 2. build: compiles `s2m2_torch/csrc/*.cu` (one nvcc each, in parallel) into
    `build/s2m2_torch/`;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, in float32 and bfloat16, with times (CUDA events, median of 20) of
-   the kernel, the plain version and, for attention,
+   card, in float32 and bfloat16 (B through the packed wrapper the model
+   calls), with times (CUDA events, median of 20; for A and B each sample
+   spans 10 back-to-back calls, and `ms_single` / `library_ms_single` keep
+   the one-call times earlier runs reported) of the kernel, the plain
+   version and, for attention,
    F.scaled_dot_product_attention as a yardstick the port never calls: A, B
-   and C at the shapes one S 1216x1024 forward gives them; D (the fused
+   and C at the shapes one S 1216x1024 forward gives them, A and B also at
+   every shape of an XL 1216x1024 forward with the fused block off (each
+   A/B record names the kernel instance that ran); D (the fused
    BasicAttnBlock) at the shapes one XL 1216x1024 forward with the fused
    route gives it, plus S's and L's widest, with seeded block weights from
    the port's own init and, beside it, the port's unfused block on the same
@@ -68,6 +73,10 @@ N_XL_REQUESTS = 4
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3, bytes/s
 # non-tensor fp32; dense bf16; dense int8 (TOP/s)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# kernels A and B run float32 as split TF32: three TF32 products (495
+# TFLOP/s dense) per float32 product, so a third of the TF32 rate
+SPLIT_TF32_FLOPS = 495e12 / 3
+ATTENTION = ("scanline_attention", "scanline_cross_attention")
 REPLACES = {
     "scanline_attention": "s2m2_tpu/ops/flash_attention.py:58",
     "scanline_cross_attention": "s2m2_tpu/ops/flash_attention.py:101",
@@ -138,8 +147,10 @@ def main_path_shapes(cfg, h, w, fused_block=False):
             "fused_basic_attn_block": blocks}
 
 
-def time_ms(fn, n=20, warmup=3):
-    """Median of n single-call CUDA-event timings, after warmup calls."""
+def time_ms(fn, n=20, warmup=3, reps=1):
+    """Median over n CUDA-event timings of `reps` back-to-back calls, per
+    call, after warmup calls. With reps = 1 the time includes the call's
+    host dispatch whenever that is longer than the work queued before it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -148,10 +159,11 @@ def time_ms(fn, n=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -177,9 +189,13 @@ def cost(name, shape, dtype_name):
 
 def bound(name, shape, dtype_name):
     """(bytes ms, operations ms): the bytes over the memory rate and the flops
-    over the peak rate for the dtype; the bound is the larger of the two."""
+    over the peak rate for the dtype (split TF32's for A and B in float32);
+    the bound is the larger of the two."""
     nbytes, flops = cost(name, shape, dtype_name)
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[dtype_name]
+    rate = PEAK_FLOPS[dtype_name]
+    if name in ATTENTION and dtype_name == "float32":
+        rate = SPLIT_TF32_FLOPS
+    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate
 
 
 def phase_device():
@@ -195,13 +211,20 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel; fail if an instance of A/B spills registers."""
+    import re
     from s2m2_torch.ops import _build
     seconds = _build.build_all()
     ptxas = {}
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         ptxas[log.stem] = [ln.strip() for ln in log.read_text().splitlines()
                            if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    spills = [ln for ln in ptxas.get("scanline_attention", [])
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+          "scanline_attention_spill_lines": spills})
+    if spills:
+        raise AssertionError(f"scanline_attention instances spill: {spills}")
 
 
 def _max_err_ok(got, ref, dtype_name, kind):
@@ -232,7 +255,19 @@ def seeded_block(c, heads, seed=0):
     return blk
 
 
-def phase_kernels(shapes):
+def packed_cross_plain(q, k, v):
+    """Kernel B's plain version on the packed (x | y) batch: (2B, N, D) in,
+    attn(qx, ky, vy) then attn(qy, kx, vx) out."""
+    import torch
+    from s2m2_torch.ops import flash_attention as fa
+    h = q.shape[0] // 2
+    return torch.cat(fa.scanline_cross_attention_plain(q[:h], k[:h], v[:h], q[h:], k[h:], v[h:]))
+
+
+def phase_kernels(shapes, xl_attention):
+    """`shapes`: per kernel, the Counter of shapes (and launches per forward)
+    of the S forward (D's: of the XL fused forward); `xl_attention`: A's and
+    B's of the XL unfused forward, timed as well and tagged "XL"."""
     import torch
     import torch.nn.functional as F
     from s2m2_torch.models.layers import layer_norm
@@ -243,18 +278,19 @@ def phase_kernels(shapes):
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     results = {name: {"float32": [], "bfloat16": []} for name in shapes}
-    # top-scale head dims of M (192: tensor-core path in bf16) and XL (384:
-    # scalar path), 64 image rows each; not on the S main path. D: S's 1x
-    # scale and L's widest scanline block, not on the XL path
-    extra = {"scanline_attention": [(64, 304, 192), (64, 304, 384)],
-             "fused_basic_attn_block": [(256, 304, 128, 1), (64, 76, 512, 4)]}
+    # D: S's 1x scale and L's widest scanline block, not on the XL path
+    extra = {"fused_basic_attn_block": [(256, 304, 128, 1), (64, 76, 512, 4)]}
     failures = []
     for name, counter in shapes.items():
-        todo = [(s, n) for s, n in counter.items()] + [(s, 0) for s in extra.get(name, [])]
-        for shape, per_forward in todo:
+        todo = [(s, n, "S") for s, n in counter.items()] + \
+            [(s, 0, "S") for s in extra.get(name, [])] + \
+            [(s, n, "XL") for s, n in xl_attention.get(name, {}).items()]
+        if name == "fused_basic_attn_block":
+            todo = [(s, n, "XL" if n else "S/L") for s, n, _ in todo]
+        for shape, per_forward, model in todo:
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[1]
-                unfused = None
+                unfused = instance = None
                 if name == "fused_basic_attn_block":
                     n, w, c, heads = shape
                     blk = seeded_block(c, heads).to(dev, dtype)
@@ -279,25 +315,29 @@ def phase_kernels(shapes):
                     plain = lambda: sinkhorn.fused_correlation_ot_plain(f0, f1)  # noqa: E731
                     lib = None
                 else:
-                    n_in = 6 if name == "scanline_cross_attention" else 3
-                    xs = [torch.randn(shape, generator=g, device=dev).to(dtype)
-                          for _ in range(n_in)]
-                    fn = getattr(fa, name)
-                    plain_fn = getattr(fa, name + "_plain")
+                    # B as the model calls it: the packed (x | y) batch, (2B, N, D)
+                    b = shape[0]
+                    if name == "scanline_cross_attention":
+                        b *= 2
+                        fn, plain_fn = fa.scanline_cross_attention_packed, packed_cross_plain
+                    else:
+                        fn, plain_fn = fa.scanline_attention, fa.scanline_attention_plain
+                    xs = [torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype)
+                          for _ in range(3)]
                     got, ref = fn(*xs), plain_fn(*xs)
-                    if n_in == 3:
-                        got, ref = (got,), (ref,)
-                    checks = [("attn", a, b) for a, b in zip(got, ref)]
+                    checks = [("attn", got, ref)]
                     kern = lambda: fn(*xs)  # noqa: E731
                     plain = lambda: plain_fn(*xs)  # noqa: E731
+                    instance = fa.plan(dtype, shape[-1])._asdict()
                     # (B, 1, N, D) views: SDPA's fused backends take 4D inputs
-                    x4 = [x.unsqueeze(1) for x in xs]
-                    if n_in == 3:
-                        lib = lambda: F.scaled_dot_product_attention(*x4)  # noqa: E731
+                    q4, k4, v4 = (x.unsqueeze(1) for x in xs)
+                    if name == "scanline_attention":
+                        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
                     else:
-                        qx, kx, vx, qy, ky, vy = x4
-                        lib = lambda: (F.scaled_dot_product_attention(qx, ky, vy),  # noqa: E731
-                                       F.scaled_dot_product_attention(qy, kx, vx))
+                        h = b // 2
+                        lib = lambda: (  # noqa: E731
+                            F.scaled_dot_product_attention(q4[:h], k4[h:], v4[h:]),
+                            F.scaled_dot_product_attention(q4[h:], k4[:h], v4[:h]))
                 torch.cuda.synchronize()
                 errs = []
                 for kind, a, b in checks:
@@ -306,14 +346,18 @@ def phase_kernels(shapes):
                                  "ok": ok})
                     if not ok:
                         failures.append((name, shape, dn, kind, err, limit))
-                rec = {"kernel": name, "shape": list(shape), "dtype": dn,
+                reps = 10 if name in ATTENTION else 1
+                rec = {"kernel": name, "model": model, "shape": list(shape), "dtype": dn,
                        "per_forward": per_forward, "checks": errs,
-                       "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                       "library_ms": time_ms(lib) if lib else None,
+                       "ms": time_ms(kern, reps=reps), "plain_ms": time_ms(plain, reps=reps),
+                       "library_ms": time_ms(lib, reps=reps) if lib else None,
                        "bound_ms": max(bound(name, shape, dn)),
                        "bound_parts_ms": bound(name, shape, dn)}
                 if unfused is not None:  # the port's unfused block, A/B and cuBLAS
                     rec["unfused_ms"] = time_ms(unfused)
+                if instance is not None:
+                    rec.update(instance=instance, ms_single=time_ms(kern),
+                               library_ms_single=time_ms(lib))
                 emit({"phase": "kernels", **rec})
                 results[name][dn].append(rec)
     if failures:
@@ -411,7 +455,7 @@ def _stereo_pair(rng, h, w, disp):
 
 
 FAMILIES = (("fused block (ours)", ("fused_block_kernel",)),
-            ("ours: scanline attention", ("attention_kernel", "attention_mma_kernel")),
+            ("ours: scanline attention", ("scanline_attention_kernel",)),
             ("ours: correlation + Sinkhorn", ("corr_ot_kernel",)),
             ("ours: E int8 pack", ("pack_rows_kernel", "pack_im2col_kernel")),
             ("ours: E int8 GEMM", ("namespace)::gemm_kernel",)),
@@ -760,36 +804,48 @@ def phase_int8_sites(log):
     return entries
 
 
+def _forward_sums(recs):
+    """Each shape's times x its launches per forward, summed over `recs`."""
+    tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
+    by_bytes = sum(r["bound_parts_ms"][0] * r["per_forward"] for r in recs)
+    by_ops = sum(r["bound_parts_ms"][1] * r["per_forward"] for r in recs)
+    sums = {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None if recs[0]["library_ms"] is None else tot("library_ms"),
+            "launches_per_forward": sum(r["per_forward"] for r in recs)}
+    for key in ("unfused_ms", "ms_single", "library_ms_single"):
+        if key in recs[0]:
+            sums[key] = tot(key)
+    return sums
+
+
 def kernels_line(results, launches):
     """One entry per kernel. ms, plain_ms, library_ms and bound_ms are sums
     over the launches of one bf16 1216x1024 forward (each shape's time times
     its launches per forward): an S forward for A, B and C, an XL forward
     with the fused block on for D (which adds unfused_ms, the port's unfused
-    blocks on the same rows); `fp32` holds the same sums in float32.
-    max_abs_err is the largest over all of the kernel's comparisons;
-    launches counts every main-path request of phases 5 and 6."""
+    blocks on the same rows); `fp32` holds the same sums in float32. A and B
+    add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
+    block off. max_abs_err is the largest over all of the kernel's
+    comparisons; launches counts every main-path request of phases 5-7."""
     out = []
     for name, by_dtype in results.items():
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": launches[name]}
+        main_model = "XL" if name == "fused_basic_attn_block" else "S"
         for dn, recs in by_dtype.items():
-            main = [r for r in recs if r["per_forward"] > 0]
-            tot = lambda key: sum(r[key] * r["per_forward"] for r in main)  # noqa: E731
-            by_bytes = sum(r["bound_parts_ms"][0] * r["per_forward"] for r in main)
-            by_ops = sum(r["bound_parts_ms"][1] * r["per_forward"] for r in main)
-            sums = {"ms": tot("ms"), "plain_ms": tot("plain_ms"),
-                    "bound_ms": tot("bound_ms"),
-                    "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                    "library_ms": None if main[0]["library_ms"] is None
-                    else tot("library_ms"),
-                    "max_abs_err": max(c["max_abs_err"] for r in recs
-                                       for c in r["checks"])}
-            if "unfused_ms" in main[0]:
-                sums["unfused_ms"] = tot("unfused_ms")
+            sums = _forward_sums([r for r in recs
+                                  if r["per_forward"] > 0 and r["model"] == main_model])
+            sums["max_abs_err"] = max(c["max_abs_err"] for r in recs for c in r["checks"])
+            xl = [r for r in recs if r["model"] == "XL"]
             if dn == "bfloat16":
                 entry.update(sums)
+                if name in ATTENTION:
+                    entry["xl"] = _forward_sums(xl)
             else:
                 entry["fp32"] = sums
+                if name in ATTENTION:
+                    entry["xl_fp32"] = _forward_sums(xl)
         out.append(entry)
     return out
 
@@ -826,8 +882,10 @@ def main():
     shapes = main_path_shapes(get_config("S"), H, W)
     xl_blocks = main_path_shapes(get_config("XL"), H, W, fused_block=True)
     with torch.inference_mode():
+        xl_unfused = main_path_shapes(get_config("XL"), H, W, fused_block=False)
         results = phase_kernels({**shapes, "fused_basic_attn_block":
-                                 xl_blocks["fused_basic_attn_block"]})
+                                 xl_blocks["fused_basic_attn_block"]},
+                                {k: xl_unfused[k] for k in ATTENTION})
         phase_probe()
     phase_golden(fused_block=False)
     phase_golden(fused_block=True)

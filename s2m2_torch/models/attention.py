@@ -152,10 +152,8 @@ class CrossAttn(nn.Module):
         q = _fold_heads(self.q(xy, qw["q"]), nh)
         k = _fold_heads(self.k(xy, qw["k"]), nh)
         v = _fold_heads(self.v(xy, qw["v"]), nh)
-        h0 = q.shape[0] // 2  # the left view's rows come first after folding
-        ox, oy = fa.scanline_cross_attention(q[:h0], k[:h0], v[:h0],
-                                             q[h0:], k[h0:], v[h0:])
-        return _project(self, torch.cat([ox, oy], dim=0), qw["proj"])
+        # the left view's rows come first after folding; one output tensor
+        return _project(self, fa.scanline_cross_attention_packed(q, k, v), qw["proj"])
 
 
 class FFN(nn.Module):

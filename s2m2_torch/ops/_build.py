@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC` into `build/s2m2_torch/lib<name>.so` at the repository root, then
-loaded with ctypes. A library is rebuilt when its source is newer. Nothing
+loaded with ctypes. A library is rebuilt when its source, or a header the
+build generates for it from Python (`_generated_headers`), is newer. Nothing
 here runs at import time: the CPU tests import every module of the package
 on machines with no `nvcc` and no card.
 
@@ -55,18 +56,42 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _generated_headers(name: str) -> dict:
+    """{file name: text} of the headers csrc/<name>.cu includes from the
+    build directory: kernels A and B compile the instance table of
+    ops/flash_attention.py, so it is kept in one place."""
+    if name != "scanline_attention":
+        return {}
+    from .flash_attention import instances_header
+    return {"scanline_attention_instances.h": instances_header()}
+
+
+def _write_generated(name: str) -> float:
+    """Write csrc/<name>.cu's generated headers into BUILD_DIR where their
+    text changed; returns the newest mtime of the source and its headers."""
+    newest = (CSRC / f"{name}.cu").stat().st_mtime
+    for fname, text in _generated_headers(name).items():
+        path = BUILD_DIR / fname
+        if not path.exists() or path.read_text() != text:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            path.write_text(text)
+        newest = max(newest, path.stat().st_mtime)
+    return newest
+
+
 def _start_build(name: str):
     """Start nvcc for csrc/<name>.cu; returns (process, tmp .so, log path),
     or None when the library is already up to date."""
     src = CSRC / f"{name}.cu"
     out = _lib_path(name)
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = _write_generated(name)
+    if out.exists() and out.stat().st_mtime >= newest:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     log = BUILD_DIR / f"{name}.log"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", tmp, str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, log

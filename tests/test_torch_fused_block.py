@@ -90,7 +90,7 @@ def test_mrt_dispatch_routes_by_width(monkeypatch):
         [True, True, False, True, True, False]
 
     calls = {"fused": [], "cross": []}
-    plain, cross = fb.fused_basic_attn_block_plain, fa.scanline_cross_attention
+    plain, cross = fb.fused_basic_attn_block_plain, fa.scanline_cross_attention_packed
 
     def spy_plain(x, y, w, h):
         calls["fused"].append(x.shape[-1])
@@ -101,7 +101,7 @@ def test_mrt_dispatch_routes_by_width(monkeypatch):
         return cross(*qkv)
 
     monkeypatch.setattr(fb, "fused_basic_attn_block_plain", spy_plain)
-    monkeypatch.setattr(attention.fa, "scanline_cross_attention", spy_cross)
+    monkeypatch.setattr(attention.fa, "scanline_cross_attention_packed", spy_cross)
     g = np.random.default_rng(0)
     zs = [torch.from_numpy(g.standard_normal((2, c, 8 >> i, 16 >> i)).astype(np.float32))
           for i, c in enumerate((384, 384, 768, 768))]

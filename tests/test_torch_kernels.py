@@ -49,8 +49,12 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(6, 48, 32), (4, 70, 16), (2, 65, 48), (2, 90, 96),
                                    (2, 129, 128), (2, 70, 192), (3, 130, 384),
-                                   (2, 33, 5)])
+                                   (2, 33, 5), (3, 40, 4), (2, 70, 24), (2, 90, 256),
+                                   (2, 304, 384)])
 def test_attention_kernels_match_plain_on_card(cuda, shape, dtype):
+    """Every instance family: D = 4 and 5 (element loads), 24 (padded to
+    32), 192 to 384 (float32's and bf16 384's query slices shared by 2-4
+    warps), ragged N; float32 within 1e-4, bfloat16 within 2e-2 * max|ref|."""
     g = torch.Generator(device=cuda).manual_seed(0)
     xs = [torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(6)]
     before = dict(_build.launch_counts)
@@ -63,6 +67,26 @@ def test_attention_kernels_match_plain_on_card(cuda, shape, dtype):
     assert _build.launch_counts["scanline_attention"] == before["scanline_attention"] + 1
     assert (_build.launch_counts["scanline_cross_attention"]
             == before["scanline_cross_attention"] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 76, 64), (4, 152, 384), (6, 33, 5), (4, 304, 384),
+                                   (16, 1216, 32)])
+def test_packed_cross_attention_kernel_on_card(cuda, shape, dtype):
+    """Kernel B on the packed (x | y) batch, the form the model calls, writes
+    both directions into one tensor: equal to the two plain directions, one
+    launch."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    b = shape[0] // 2
+    before = _build.launch_counts["scanline_cross_attention"]
+    got = fa.scanline_cross_attention_packed(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["scanline_cross_attention"] == before + 1
+    want = torch.cat(fa.scanline_cross_attention_plain(q[:b], k[:b], v[:b],
+                                                       q[b:], k[b:], v[b:])).float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2 * float(want.abs().max())
+    assert float((got.float() - want).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

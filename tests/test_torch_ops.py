@@ -30,7 +30,8 @@ ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(6, 48, 32), (4, 40, 16)])
+@pytest.mark.parametrize("shape", [(6, 48, 32), (4, 40, 16), (2, 76, 384),
+                                   (2, 40, 256), (2, 70, 24)])
 def test_scanline_attention_plain_matches_pallas(rng, shape, dtype):
     from s2m2_tpu.ops.flash_attention import scanline_attention as jax_attn
     (qj, qt), (kj, kt), (vj, vt) = (_pair(rng, shape, dtype) for _ in range(3))
@@ -41,7 +42,8 @@ def test_scanline_attention_plain_matches_pallas(rng, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(6, 48, 32), (4, 40, 16)])
+@pytest.mark.parametrize("shape", [(6, 48, 32), (4, 40, 16), (2, 76, 384),
+                                   (2, 40, 256), (2, 70, 24)])
 def test_scanline_cross_attention_plain_matches_pallas(rng, shape, dtype):
     from s2m2_tpu.ops.flash_attention import scanline_cross_attention as jax_cross
     pairs = [_pair(rng, shape, dtype) for _ in range(6)]
