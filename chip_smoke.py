@@ -46,11 +46,14 @@ non-zero:
    off), every quantized GEMM of the calibration pass served by kernel E,
    and E's launches against the forward's own record of its sites.
 
-Kernel E (int8 quantize_pack + int8 GEMM) is held against its plain
-version in phase 3 at the TPU probe's shape, and after phase 7 at every
-site shape one XL int8 forward gives it (with torch._int_mm, which the port
-never calls, as the yardstick of its GEMM); phase 4 also runs the golden
-fixtures under int8 and int8r. Then it prints the kernels line, the
+Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
+plain version in phase 3 at the TPU probe's shape, and after phase 7 at
+every site shape one XL int8 forward gives it, in row mode and in conv
+mode (implicit GEMM on the NHWC int8 tensor), timed by the device (10
+back-to-back calls) and by one call, beside torch._int_mm (which the port
+never calls) as the yardstick of its GEMM and the bound of each site's own
+work; phase 7 also fails if a conv with C >= 32 packed explicit im2col
+rows. Phase 4 also runs the golden fixtures under int8 and int8r. Then it prints the kernels line, the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -221,8 +224,13 @@ def phase_build():
                            if "registers" in ln or "spill" in ln]
     spills = [ln for ln in ptxas.get("scanline_attention", [])
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    # kernel E's GEMM: spills, and the compiler's notes on wgmma and setmaxnreg
+    gemm_notes = [ln.strip()[:160] for ln in
+                  (_build.BUILD_DIR / "int8_gemm.log").read_text().splitlines()
+                  if re.search(r"[1-9]\d* bytes spill|C7519|C7508|C7510|wgmma|setmaxnreg", ln)]
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
-          "scanline_attention_spill_lines": spills})
+          "scanline_attention_spill_lines": spills, "int8_gemm_notes": gemm_notes[:40],
+          "int8_gemm_note_count": len(gemm_notes)})
     if spills:
         raise AssertionError(f"scanline_attention instances spill: {spills}")
 
@@ -457,7 +465,8 @@ def _stereo_pair(rng, h, w, disp):
 FAMILIES = (("fused block (ours)", ("fused_block_kernel",)),
             ("ours: scanline attention", ("scanline_attention_kernel",)),
             ("ours: correlation + Sinkhorn", ("corr_ot_kernel",)),
-            ("ours: E int8 pack", ("pack_rows_kernel", "pack_im2col_kernel")),
+            ("ours: E int8 pack", ("pack_rows_kernel", "pack_nhwc_kernel",
+                                   "pack_im2col_kernel")),
             ("ours: E int8 GEMM", ("namespace)::gemm_kernel",)),
             ("convolution (cuDNN)", ("fprop", "implicit", "conv", "cudnn", "winograd",
                                      "fft")),
@@ -636,9 +645,11 @@ def phase_probe():
 def _int8_counts(eng, label, counts, n_requests):
     """Check one served int8 run: every quantized GEMM that the calibration
     pass saw ran in each forward, and E's launches match the forward's own
-    record of its packs and GEMMs. Returns (E's launches per forward, the
-    forward's site log)."""
+    record of its packs and GEMMs, and no conv with C >= 32 packed explicit
+    im2col rows. Returns (E's launches per forward, the forward's site
+    log)."""
     from s2m2_torch.models import quant
+    from s2m2_torch.ops import int8_gemm as ig
     log = quant.last_log()
     sites = sum(r["kind"] == "gemm_site" for r in log)
     per = {"int8_quantize_pack": sum(r["kind"] == "pack" for r in log),
@@ -646,6 +657,10 @@ def _int8_counts(eng, label, counts, n_requests):
     if sites != eng.quant_gemms or min(per.values()) <= 0:
         raise AssertionError(f"{label}: {sites} quantized GEMMs in the forward, "
                              f"{eng.quant_gemms} in calibration")
+    wide = [r["in_shape"] for r in log if r["kind"] == "pack" and r["layout"] == "im2col"
+            and ig.implicit(r["in_shape"][1])]
+    if wide:  # every conv with C >= 32 runs as an implicit GEMM, without im2col rows
+        raise AssertionError(f"{label}: explicit im2col packs of wide convs: {wide[:3]}")
     for name, n in per.items():
         if counts[name] != n * n_requests:
             raise AssertionError(f"{label}: {name} launched {counts[name]} times, "
@@ -693,108 +708,180 @@ def phase_int8(shapes, pairs, xl_bf16_disps):
     return launches, xl_log
 
 
+def _site_pack_inputs(g, rec):
+    """(x, kwargs) of one pack record: a seeded float input of its shape."""
+    import torch
+    dt = torch.bfloat16 if rec["dtype"] == "torch.bfloat16" else torch.float32
+    x = torch.randn(rec["in_shape"], generator=g, device="cuda").to(dt)
+    layout = rec["layout"]
+    kw = {"nhwc": True} if layout == "nhwc" else {"conv": rec["conv"]}
+    if layout == "im2col":
+        kw["rows"] = (0, rec["rows"])
+    return x, kw
+
+
+def _site_gemm_inputs(g, rec):
+    """(a, w) of one GEMM record, seeded int8 with the padded columns (or
+    padded channels of the NHWC tensor) zero, as the packs leave them."""
+    import torch
+    n, k, kp, conv = rec["n"], rec["k"], rec["kp"], rec["conv"]
+    a = torch.randint(-127, 128, rec["a_shape"], generator=g, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, kp), generator=g, device="cuda", dtype=torch.int8)
+    if conv is None:
+        a[:, k:] = 0
+        w[:, k:] = 0
+    else:
+        c = k // (conv[0] * conv[1])
+        a[..., c:] = 0
+        w.view(n, conv[0] * conv[1], -1)[:, :, c:] = 0
+    return a, w
+
+
+def _device_ms(fn):
+    """Device-bound time of one call: CUDA events over 10 back-to-back calls
+    (the host's dispatch then overlaps the work queued before it)."""
+    return time_ms(fn, n=10, reps=10)
+
+
 def phase_int8_sites(log):
     """Kernel E at every distinct site shape of one XL int8 forward (from the
-    forward's own record), each against its plain version: the packed rows
-    bit-equal, the GEMM's int32 accumulators bit-equal and its bf16 output
-    within one ulp. Times per forward (each shape's median times its
-    launches), the bound and, for the GEMM, torch._int_mm on the shapes it
-    accepts. Returns the two kernels-line entries; with --out DIR the
-    per-shape records go to DIR/int8_sites.json."""
+    forward's own record), each against its plain version: the packed int8
+    (token rows, NHWC tensor or explicit im2col rows) bit-equal; the GEMM's
+    int32 accumulators bit-equal and its output within one ulp, in row mode
+    and in conv mode (implicit GEMM). Times per forward (each shape's median
+    times its launches): `ms` over 10 back-to-back calls (the device's
+    time), `ms_single` over one call (which includes the host's dispatch
+    when that is longer); torch._int_mm, which the port never calls, on
+    int8 rows of the explicit im2col width at every shape it accepts, timed
+    the same two ways. Bounds: each kernel's own share of the sites' work
+    (the pack: the activation read once; the GEMM: weight, output, scales
+    and operations) and `site_bound_ms`, the bound of each site's work
+    taken whole (`site_work`), the same whatever the design. Returns the two
+    kernels-line entries; with --out DIR the per-shape records go to
+    DIR/int8_sites.json."""
     import torch
     from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.tools.chip_probe import site_work
     g = torch.Generator(device="cuda").manual_seed(0)
+    size = {"torch.bfloat16": 2, "torch.float32": 4}
     packs, gemms = Counter(), Counter()
+    recs_of = {}
     for r in log:
         if r["kind"] == "pack":
-            packs[(tuple(r["in_shape"]), r["conv"], r["rows"], r["k"], r["kp"],
-                   r["dtype"])] += 1
+            key = (r["layout"], tuple(r["in_shape"]), r["conv"], r["rows"], r["dtype"])
         elif r["kind"] == "gemm":
-            gemms[(r["m"], r["n"], r["k"], r["kp"], r["out"], r["nchw"])] += 1
-    recs = []
-    for (in_shape, conv, rows, k, kp, dtype), count in packs.items():
-        dt = torch.bfloat16 if dtype == "torch.bfloat16" else torch.float32
-        x = torch.randn(in_shape, generator=g, device="cuda").to(dt)
-        inv = 20.0
-        rng_rows = None if conv is None else (0, rows)
-        got = ig.quantize_pack(x, inv, conv=conv, rows=rng_rows)
-        ok = torch.equal(got, ig.quantize_pack_plain(x, inv, conv, rng_rows))
-        if conv is None:
-            in_bytes = rows * k * x.element_size()
+            key = (tuple(r["a_shape"]), r["n"], r["k"], r["kp"], r["out"], r["nchw"],
+                   r["conv"], r["m"])
         else:
-            b, _, h, w = in_shape
-            ho, wo = ig.conv_out_hw(h, w, conv)
-            in_bytes = x.numel() * x.element_size() * rows / (b * ho * wo)
-        rec = {"kernel": "int8_quantize_pack", "in_shape": list(in_shape), "conv": conv,
-               "rows": rows, "k": k, "kp": kp, "per_forward": count, "ok": ok,
-               "ms": time_ms(lambda: ig.quantize_pack(x, inv, conv=conv,  # noqa: B023
-                                                      rows=rng_rows), n=10),
-               "plain_ms": time_ms(lambda: ig.quantize_pack_plain(x, inv, conv,  # noqa: B023
-                                                                  rng_rows), n=3, warmup=1),
-               "bound_ms": 1e3 * (in_bytes + rows * kp) / PEAK_BYTES, "by_bytes": True,
-               "max_abs_err": 0.0 if ok else float("inf")}
-        recs.append(rec)
+            continue
+        (packs if r["kind"] == "pack" else gemms)[key] += 1
+        recs_of.setdefault(key, r)
+    recs = []
+    for key, count in packs.items():
+        r = recs_of[key]
+        x, kw = _site_pack_inputs(g, r)
+        inv = 20.0
+        got = ig.quantize_pack(x, inv, **kw)
+        ok = torch.equal(got, ig.quantize_pack_plain(x, inv, **kw))
+        in_bytes = site_work([r])[0][0] - (r["rows"] * r["kp"])  # the activation's share
+        kern = lambda: ig.quantize_pack(x, inv, **kw)  # noqa: E731, B023
+        recs.append({"kernel": "int8_quantize_pack", "layout": r["layout"],
+                     "in_shape": list(r["in_shape"]), "conv": r["conv"], "rows": r["rows"],
+                     "k": r["k"], "kp": r["kp"], "per_forward": count, "ok": ok,
+                     "ms": _device_ms(kern), "ms_single": time_ms(kern, n=10),
+                     "plain_ms": time_ms(lambda: ig.quantize_pack_plain(  # noqa: B023
+                         x, inv, **kw), n=3, warmup=1),
+                     "bound_ms": 1e3 * in_bytes / PEAK_BYTES, "by_bytes": True,
+                     "max_abs_err": 0.0 if ok else float("inf")})
         del x, got
     for key, count in gemms.items():
-        m, n, k, kp, out, nchw = key
-        dt = torch.bfloat16 if out == "torch.bfloat16" else torch.float32
-        a = torch.randint(-127, 128, (m, kp), generator=g, device="cuda", dtype=torch.int8)
-        a[:, k:] = 0
-        w = torch.randint(-127, 128, (n, kp), generator=g, device="cuda", dtype=torch.int8)
-        w[:, k:] = 0
+        r = recs_of[key]
+        m, n, k, conv = r["m"], r["n"], r["k"], r["conv"]
+        dt = torch.bfloat16 if r["out"] == "torch.bfloat16" else torch.float32
+        a, w = _site_gemm_inputs(g, r)
         s_w = torch.rand((n,), generator=g, device="cuda") * 1e-4
         bias = torch.randn((n,), generator=g, device="cuda")
-        o = torch.empty((1, n, 1, m), dtype=dt, device="cuda") if nchw else None
-        acc_ok = torch.equal(ig.int8_gemm(a, w, out_dtype=torch.int32),
-                             ig.int8_gemm_plain(a, w, out_dtype=torch.int32))
-        got = ig.int8_gemm(a, w, s_w, 0.01, bias, dt, out=o)
-        got = got.reshape(n, m).t() if nchw else got
-        ref = ig.int8_gemm_plain(a, w, s_w, 0.01, bias, dt)
+        o = None
+        if r["nchw"]:
+            ho, wo = (ig.conv_out_hw(a.shape[1], a.shape[2], conv) if conv
+                      else (1, m))
+            o = torch.empty((m // (ho * wo), n, ho, wo), dtype=dt, device="cuda")
+        acc = ig.int8_gemm(a, w, out_dtype=torch.int32, conv=conv)
+        acc_ok = torch.equal(acc, ig.int8_gemm_plain(a, w, out_dtype=torch.int32, conv=conv))
+        got = ig.int8_gemm(a, w, s_w, 0.01, bias, dt, out=o, conv=conv)
+        got = got.permute(0, 2, 3, 1).reshape(m, n) if r["nchw"] else got
+        ref = ig.int8_gemm_plain(a, w, s_w, 0.01, bias, dt, conv=conv)
         diff = (got.float() - ref.float()).abs()
         big = torch.maximum(got.float().abs(), ref.float().abs()).clamp(min=1e-30)
         ulp = torch.exp2(torch.floor(torch.log2(big)) - (7 if dt == torch.bfloat16 else 23))
         ok = acc_ok and bool((diff <= ulp).all())
-        lib = None
-        if m > 16 and kp % 8 == 0 and n % 8 == 0:
+        del acc, got, ref, diff, big, ulp
+        lib = lib_single = None
+        kpad = ig.k_padded(k)
+        if m > 16 and n % 8 == 0:  # torch._int_mm on the explicit im2col rows' shape
+            rows = torch.randint(-127, 128, (m, kpad), generator=g, device="cuda",
+                                 dtype=torch.int8)
+            wt = torch.randint(-127, 128, (n, kpad), generator=g, device="cuda",
+                               dtype=torch.int8).t()
             try:
-                wt = w.t()
-                torch._int_mm(a, wt)
-                lib = time_ms(lambda: torch._int_mm(a, wt), n=10)  # noqa: B023
+                torch._int_mm(rows, wt)
+                lib = _device_ms(lambda: torch._int_mm(rows, wt))  # noqa: B023
+                lib_single = time_ms(lambda: torch._int_mm(rows, wt), n=10)  # noqa: B023
             except RuntimeError:
-                lib = None
-        nbytes = m * kp + n * kp + m * n * got.element_size() + 8 * n
+                pass
+            del rows, wt
+        nbytes = n * k + m * n * size[r["out"]] + 8 * n
         ops = 2 * m * n * k
-        rec = {"kernel": "int8_gemm", "m": m, "n": n, "k": k, "kp": kp, "out": out,
-               "nchw": nchw, "per_forward": count, "ok": ok,
-               "max_abs_err": float(diff.max()),
-               "ms": time_ms(lambda: ig.int8_gemm(a, w, s_w, 0.01, bias, dt,  # noqa: B023
-                                                  out=o), n=10),
-               "plain_ms": time_ms(lambda: ig.int8_gemm_plain(a, w, s_w, 0.01,  # noqa: B023
-                                                              bias, dt), n=3, warmup=1),
-               "library_ms": lib,
-               "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_FLOPS["int8"]),
-               "by_bytes": nbytes / PEAK_BYTES >= ops / PEAK_FLOPS["int8"]}
-        recs.append(rec)
-        del a, w, got, ref, diff
+        kern = lambda: ig.int8_gemm(a, w, s_w, 0.01, bias, dt, out=o, conv=conv)  # noqa: E731, B023
+        gather = (conv is not None and tuple(conv) != (1, 1, 1, 1, 0, 0)
+                  and not ig.tap_tiles(conv, r["a_shape"][3]))
+        p = ig.plan("int8", m, n, torch.cuda.get_device_properties(0).multi_processor_count,
+                    gather)
+        recs.append({"kernel": "int8_gemm", "m": m, "n": n, "k": k, "kp": r["kp"],
+                     "conv": conv, "a_shape": list(r["a_shape"]), "out": r["out"],
+                     "nchw": r["nchw"], "per_forward": count, "ok": ok,
+                     "instance": p._asdict(), "max_abs_err": 0.0 if ok else float("inf"),
+                     "ms": _device_ms(kern), "ms_single": time_ms(kern, n=10),
+                     "plain_ms": time_ms(lambda: ig.int8_gemm_plain(  # noqa: B023
+                         a, w, s_w, 0.01, bias, dt, conv=conv), n=3, warmup=1),
+                     "library_ms": lib, "library_ms_single": lib_single,
+                     "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_FLOPS["int8"]),
+                     "by_bytes": nbytes / PEAK_BYTES >= ops / PEAK_FLOPS["int8"]})
+        del a, w
     torch.cuda.empty_cache()
     if OUT_DIR is not None:
         (OUT_DIR / "int8_sites.json").write_text(json.dumps(recs))
     bad = [r for r in recs if not r["ok"]]
+    site_bound = sum(1e3 * max(b / PEAK_BYTES, o / PEAK_FLOPS["int8"])
+                     for b, o in site_work(log))
     entries = {}
     for name in ("int8_quantize_pack", "int8_gemm"):
         mine = [r for r in recs if r["kernel"] == name]
-        tot = lambda key: sum(r[key] * r["per_forward"] for r in mine)  # noqa: E731
+        tot = lambda key, rs=mine: sum(r[key] * r["per_forward"] for r in rs)  # noqa: E731
         by_bytes = sum(r["bound_ms"] * r["per_forward"] for r in mine if r["by_bytes"])
         lib = [r for r in mine if r.get("library_ms") is not None]
         entries[name] = {
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "ms": tot("ms"), "ms_single": tot("ms_single"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
             "bound_by": "bytes" if 2 * by_bytes >= tot("bound_ms") else "operations",
-            "library_ms": (sum(r["library_ms"] * r["per_forward"] for r in lib)
-                           if lib else None),
+            "site_bound_ms": site_bound,
+            "library_ms": tot("library_ms", lib) if lib else None,
+            "library_ms_single": tot("library_ms_single", lib) if lib else None,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "shapes": len(mine), "launches_per_forward": sum(r["per_forward"] for r in mine)}
+        if name == "int8_quantize_pack":  # per forward: the path each site takes
+            split = {}
+            for r in log:
+                if r["kind"] == "pack":
+                    d = split.setdefault(r["layout"], {"launches": 0, "in_bytes": 0,
+                                                       "int8_bytes": 0})
+                    d["launches"] += 1
+                    d["in_bytes"] += site_work([r])[0][0] - r["rows"] * r["kp"]
+                    d["int8_bytes"] += r["rows"] * r["kp"]
+            entries[name]["by_layout"] = split
         if lib:  # the GEMM's own time on the shapes torch._int_mm accepts
-            entries[name]["ms_where_library"] = sum(r["ms"] * r["per_forward"] for r in lib)
+            entries[name]["ms_where_library"] = tot("ms", lib)
             entries[name]["launches_where_library"] = sum(r["per_forward"] for r in lib)
         emit({"phase": "kernels", "kernel": name, "at": "XL int8 1216x1024 site shapes",
               **entries[name]})

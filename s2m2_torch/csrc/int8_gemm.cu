@@ -6,46 +6,86 @@
 // s2m2_tpu/models/quant.py: _quantize_input, then the int8 conv or dot
 // with int32 accumulation, then acc * (s_w[n] * s_x) + bias, cast to the
 // input's dtype (conv2d_maybe_quantized, linear_maybe_quantized). One
-// site is two launches:
+// site is one pack and one GEMM launch:
 //
-//  - quantize_pack: reads the float activation (bf16 or float32) and
-//    writes int8 rows q = clip(rint(x * inv), -127, 127), inv =
-//    float32(1 / s_x), rounding half to even as jnp.round does. For a
-//    kh x kw / stride / padding convolution on an NCHW tensor it writes the
-//    im2col rows (row m = (b, ho, wo), column k = (c, dy, dx), the order of
-//    an OIHW weight flattened), with 0 for the padding taps, which is what
-//    quantizing after zero padding gives. Rows are padded with zeros to
-//    Kp, a multiple of 32.
-//  - int8_gemm: C[m, n] = sum_k A[m, k] W[n, k] in int32 on the tensor
-//    cores (mma.sync m16n8k32 s8.s8.s32; A is row-major, W is torch's
-//    Linear layout (N, K), which is the "col" operand), then the epilogue
+//  - the pack reads the float activation (bf16 or float32) once and writes
+//    q = clip(rint(x * inv), -127, 127), inv = float32(1 / s_x), rounding
+//    half to even as jnp.round does, as
+//      * token rows (M, Kp) (pack_rows_kernel), for linears;
+//      * one NHWC int8 tensor (B, H, W, Cp) of an NCHW input
+//        (pack_nhwc_kernel), for a convolution with C >= 32: the GEMM
+//        gathers its A tiles from it (implicit GEMM), so no im2col rows
+//        exist; a 1x1 stride-1 conv reads it as plain rows;
+//      * explicit im2col rows (pack_im2col_kernel, columns in the (c, dy,
+//        dx) order of an OIHW weight, 0 for padding taps), only for convs
+//        with C < 32 (the stem's first convs), where a tap's channels are
+//        less than one 32-byte k-step;
+//    Kp and Cp are K and C rounded up to 32 with zero columns.
+//  - gemm_kernel: C[m, n] = sum_k A[m, k] W[n, k] in int32 by wgmma
+//    (m64nNk32.s32.s8.s8, both operands K-major in 128-byte-swizzled shared
+//    memory, the only layout 8-bit wgmma takes), then the epilogue
 //    out = cast(float(acc) * (s_w[n] * s_x) + bias[n]) with the scale
 //    product taken first and no fused multiply-add, as the JAX package
-//    rounds; or the raw int32 accumulators. The output is row-major (M, N)
-//    or NCHW (row m = (b, hw)), so a conv's output needs no transpose.
+//    rounds; or the raw int32 accumulators. Row-major (M, N) or NCHW output.
+//    The same kernel on bf16 operands (m64nNk16.f32.bf16.bf16, float32
+//    accumulation) is the probe's _kernel_bf16 body.
 //
-// The same GEMM, instantiated on bf16 operands (mma m16n8k16, float32
-// accumulation, bf16 or float32 out), serves the probe's _kernel_bf16 body.
-//
-// What bounds it on the H100: most sites of the int8 forward are
-// memory-bound (XL's 1x-scale projections: 45.9 GOP, 23 us at 1,979 TOP/s,
-// against 179 MB of int8 in and bf16 out, 54 us at 3.35 TB/s), and a 3x3
-// conv's im2col rows are K = 9 C wide, so the pack is the larger share of
-// the bytes. What this version does: one 128 x 128 output tile per block
-// of 8 warps (each warp 64 x 32), 128-byte deep k tiles staged in shared
-// memory by cp.async in a ring of three, fragments loaded by ldmatrix from
-// 144-byte shared rows (conflict-free), the blocks of one row panel
-// launched together so A streams from device memory once, and the output
-// tile staged in shared memory so its stores are coalesced for row-major
-// and NCHW output alike; the im2col pack goes
-// through 64 x 64 shared-memory tiles so that both its reads (along
-// pixels) and its writes (along columns) are coalesced. wgmma with TMA,
-// an implicit-GEMM conv with no im2col rows, and the quantize fused into
-// the producer's epilogue are the next steps (ROADMAP.md).
+// What bounds it on the H100: a site's own work is its activation read once
+// in its dtype, the int8 weight, the output written once, and 2 M N K
+// operations at 1,979 TOP/s; most XL sites are bound by those bytes, the
+// 3x3 convs at the 1/4 scale by the operations. What the design does about
+// it:
+//  - one warp-specialized block per SM, persistent over its output tiles:
+//    a producer warpgroup fills a ring of 4-8 stages of 128-byte-deep k
+//    tiles (mbarrier full/empty pairs) and runs on into the next tile while
+//    one to three consumer warpgroups, each with a 64-row accumulator in
+//    registers (setmaxnreg moves registers from the producer to them),
+//    issue wgmma on the tiles as they land, one k tile of wgmma in flight,
+//    then store the finished tile;
+//  - row mode: A and W tiles arrive by TMA (cuTensorMapEncodeTiled, 128-byte
+//    swizzle, out-of-bounds rows and k zero-filled); the weight's tensor map
+//    is encoded once and cached, the activation's per launch;
+//  - conv mode (implicit GEMM): the weight is (N, kh * kw * Cp) in (dy, dx,
+//    c) order, by TMA, so each 128-byte k tile is 128 channels of one tap.
+//    For a stride-1 conv with Cp % 128 == 0 (every wide conv of the model)
+//    a block's rows are a (BM / 16) x 16 block of output pixels of one
+//    image, and each k tile of A is one TMA box of a 4D map of the NHWC
+//    int8 tensor at (c, wo0 + dx - pw, ho0 + dy - ph, b): TMA zero-fills
+//    the taps outside the image, which is what quantizing the zero padding
+//    gives, and the producer is one thread. Other convs (strides, Cp = 32
+//    or 64) gather A's rows m = (b, ho, wo) with 16-byte cp.async written
+//    straight into the swizzle, zero-filled the same way, each thread's
+//    copies arriving on the stage's barrier as they land
+//    (cp.async.mbarrier.arrive.noinc) and the consumers fencing the tile
+//    into the async proxy before their wgmma reads it. The boxes take the
+//    1/4-scale 3x3 convs 1.5x faster than the gather does on the H100, so
+//    the gather serves only what a box cannot;
+//  - the k loop stops at Kp (a multiple of 32): the last tile runs only its
+//    live 32-byte k-steps;
+//  - the N tile (32 to 256) and the warpgroups are chosen per site
+//    (ops/int8_gemm.py `plan`, whose table `_build.py` writes into
+//    int8_gemm_instances.h), so small-N sites stop running 128-wide tiles
+//    of zeros; tile t is row panel t / (N tiles), so the blocks in flight
+//    share row panels and A streams from device memory once;
+//  - the epilogue takes s_w[n] * s_x and bias[n] from a table each
+//    warpgroup fills in shared memory at the start of a tile, and each warp
+//    stages its 16 rows there in chunks of 128-byte rows, so that its
+//    stores are 16-byte runs along n (row-major) or along 8 pixels of a
+//    channel (NCHW).
+// The quantize fused into the producers' epilogues is the next step
+// (ROADMAP.md).
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked
+                   // up through the runtime (`encoder`), so nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 namespace {
 
@@ -59,31 +99,109 @@ __device__ __forceinline__ int8_t quant(float v, float inv) {
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
 }
 
-union Pack8 {
-  int8_t b[8];
-  uint2 u;
+union Pack16 {
+  int8_t b[16];
+  uint4 u;
 };
+
+// 8 consecutive values from 16-byte aligned memory, as floats
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
+}
 
 // Token rows: row m of x starts at (m / inner) * outer + (m % inner) * ld,
 // which covers a contiguous (M, K) matrix (inner = M) and one head of a
-// (B, heads, N, d) tensor (inner = N, ld = d, outer = heads * N * d).
+// (B, heads, N, d) tensor (inner = N, ld = d, outer = heads * N * d). Each
+// thread writes 16 columns of one row as one 16-byte store; it reads them
+// as 16-byte loads where the row allows (vec: K, ld and outer multiples of
+// 8 and x 16-byte aligned), else value by value.
 template <typename T>
 __global__ void pack_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                                  long long M, int K, int Kp, long long inner,
-                                 long long ld, long long outer, float inv) {
-  const int groups = Kp / 8;
+                                 long long ld, long long outer, float inv, bool vec) {
+  const int groups = Kp / 16;
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= M * groups) return;
   const long long m = i / groups;
-  const int k0 = static_cast<int>(i % groups) * 8;
+  const int k0 = static_cast<int>(i % groups) * 16;
   const T* src = x + (m / inner) * outer + (m % inner) * ld;
-  Pack8 pk;
+  Pack16 pk;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int k = k0 + j;
-    pk.b[j] = k < K ? quant(to_f(src[k]), inv) : static_cast<int8_t>(0);
+  for (int h = 0; h < 2; ++h) {
+    const int kb = k0 + 8 * h;
+    if (vec && kb + 8 <= K) {
+      float v[8];
+      load8(src + kb, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) pk.b[8 * h + j] = quant(v[j], inv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        pk.b[8 * h + j] = kb + j < K ? quant(to_f(src[kb + j]), inv) : int8_t(0);
+    }
   }
-  *reinterpret_cast<uint2*>(q + m * Kp + k0) = pk.u;
+  *reinterpret_cast<uint4*>(q + m * Kp + k0) = pk.u;
+}
+
+// NCHW (B, C, H, W) -> NHWC int8 (B, H, W, Cp), channels C..Cp zero: 64
+// pixels x 64 channels per block, staged in shared memory. The reads run
+// along pixels (8 a thread, one 16-byte load in bf16 where HW % 8 == 0),
+// the writes along channels (16 a thread, one 16-byte store).
+constexpr int NHWC_P = 64;
+constexpr int NHWC_C = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    pack_nhwc_kernel(const T* __restrict__ x, int8_t* __restrict__ q, int C, long long HW,
+                     int Cp, float inv) {
+  __shared__ __align__(16) int8_t tile[NHWC_P][NHWC_C + 16];
+  const long long p0 = static_cast<long long>(blockIdx.x) * NHWC_P;
+  const int c0 = blockIdx.y * NHWC_C;
+  const long long b = blockIdx.z;
+  const bool vec = HW % 8 == 0;
+  for (int u = threadIdx.x; u < NHWC_C * (NHWC_P / 8); u += 256) {
+    const int cl = u / (NHWC_P / 8);
+    const int pg = (u % (NHWC_P / 8)) * 8;
+    const int c = c0 + cl;
+    const long long p = p0 + pg;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    bool live[8] = {false, false, false, false, false, false, false, false};
+    if (c < C) {
+      const T* src = x + (b * C + c) * HW + p;
+      if (vec && p + 8 <= HW) {
+        load8(src, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) live[j] = true;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (p + j < HW) {
+            v[j] = to_f(src[j]);
+            live[j] = true;
+          }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tile[pg + j][cl] = live[j] ? quant(v[j], inv) : int8_t(0);
+  }
+  __syncthreads();
+  for (int u = threadIdx.x; u < NHWC_P * (NHWC_C / 16); u += 256) {
+    const int pl = u / (NHWC_C / 16);
+    const int cg = (u % (NHWC_C / 16)) * 16;
+    const long long p = p0 + pl;
+    if (p < HW && c0 + cg < Cp)
+      *reinterpret_cast<uint4*>(q + (b * HW + p) * Cp + c0 + cg) =
+          *reinterpret_cast<const uint4*>(&tile[pl][cg]);
+  }
 }
 
 // im2col rows m_begin .. m_begin + rows of an NCHW input, in 64 x 64 tiles
@@ -109,10 +227,7 @@ __global__ void __launch_bounds__(PACK_THREADS)
     const int rl = tid % PACK_M;
     const int kg = (tid / PACK_M) * 16;
     const long long r = r0 + rl;
-    union {
-      int8_t b[16];
-      uint4 u;
-    } pk;
+    Pack16 pk;
     pk.u = make_uint4(0, 0, 0, 0);
     if (r < rows) {
       const long long m = m_begin + r;
@@ -155,253 +270,651 @@ __global__ void __launch_bounds__(PACK_THREADS)
         *reinterpret_cast<const uint4*>(&tile[rl][c16]);
 }
 
+}  // namespace
+
+// The instance table of ops/int8_gemm.py (`_INSTANCES`) and the wgmma
+// wrappers of its N tiles, written into the build directory by _build.py.
+#include "int8_gemm_instances.h"
+
+namespace {
+
 // ------------------------------------------------------------------ GEMM
+constexpr int BKB = 128;  // k tile in bytes: one 128-byte swizzle row
+constexpr int KSTEP = 32;  // bytes of k per wgmma
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 128;         // k tile, in bytes (128 int8 or 64 bf16 values)
-constexpr int SROW = BK + 16;   // shared row stride: 144 bytes, 36 words apart
-constexpr int STAGES = 3;
-constexpr int STAGE_BYTES = (BM + BN) * SROW;
-constexpr int GEMM_SMEM = STAGES * STAGE_BYTES;  // 110,592 bytes, 2 blocks per SM
-constexpr int GEMM_THREADS = 256;
-static_assert(BM == BN, "the epilogue's tile is square");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+// one arrival on `bar` once every cp.async this thread issued has landed
+// (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the accumulators are written by the asynchronous wgmma: keep the
+// compiler from moving their reads above the wait
+__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+template <typename Acc, int R>
+__device__ __forceinline__ void fence_regs(Acc (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) fence_reg(d[i]);
 }
 
-// four 8 x 16-byte matrices; lane l gets word l % 4 of row l / 4 of each
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// wgmma matrix descriptor of a K-major tile with 128-byte swizzle: rows of
+// 128 bytes, 8-row atoms 1,024 bytes apart (SBO), base 1,024-aligned.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// S k-steps of 32 bytes: the descriptors advance 32 bytes (2 units of 16)
+// inside the 128-byte swizzle atom
+// (keep 0: the first step overwrites the accumulators, so no instruction
+// but wgmma ever writes them)
+template <typename In, int BN, int S, typename Acc>
+__device__ __forceinline__ void k_steps(Acc (&acc)[BN / 2], uint64_t da, uint64_t db,
+                                        int keep) {
+#pragma unroll
+  for (int ks = 0; ks < S; ++ks)
+    Wgmma<In, BN>::mma(acc, da + 2 * ks, db + 2 * ks, ks > 0 ? 1 : keep);
 }
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+
+struct GemmArgs {
+  long long M;  // output rows
+  int N;
+  int Kb;  // reduction depth in bytes, a multiple of 32
+  const float* w_scale;
+  float s_x;
+  const float* bias;
+  void* out;
+  int out_kind;    // 0 float32, 1 bfloat16, 2 the raw int32 accumulators
+  long long ldc;   // row-major output: row stride in elements
+  long long hw;    // > 0: NCHW output, row m_base + m = b * hw + p
+  long long m_base;
+  // conv mode, on x, an NHWC int8 (B, H, W, Cp): conv 1 gathers A's rows
+  // m = (b, ho, wo) with cp.async; conv 2 (stride 1, Cp % 128 == 0) loads
+  // each tap of a (BM / 16) x 16 block of output pixels by one TMA box of
+  // tma_a, a 4D map of x; tiles_w / tiles_h: such blocks across Wo and Ho
+  int conv;
+  const int8_t* x;
+  int H, W, Cp, Ho, Wo, kw, sh, sw, ph, pw;
+  int tiles_w, tiles_h;
+};
+
+template <typename In>
+struct AccOf {
+  using type = int;
+};
+template <>
+struct AccOf<__nv_bfloat16> {
+  using type = float;
+};
 
 __device__ __forceinline__ float acc_f(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float acc_f(float v) { return v; }
+__device__ __forceinline__ int acc_raw(int v) { return v; }
+__device__ __forceinline__ int acc_raw(float) { return 0; }
 
-template <typename OutT, typename Acc>
-__device__ __forceinline__ OutT to_out(float v, Acc raw);
-template <>
-__device__ __forceinline__ float to_out<float, int>(float v, int) { return v; }
-template <>
-__device__ __forceinline__ float to_out<float, float>(float v, float) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16, int>(float v, int) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16, float>(float v, float) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ int to_out<int, int>(float, int raw) { return raw; }
+constexpr int STG_PITCH = 144;           // staging row: 128 bytes + 16 of pad
+constexpr int STG_BYTES = 16 * STG_PITCH;  // one warp's 16 rows
 
-// Acc: int (int8 operands) or float (bf16 operands). OutT int: the raw
-// int32 accumulators. Lengths in bytes: lda, ldb and Kb (= K * element
-// size, a multiple of 32). hw > 0: NCHW output, row m_base + m = b * hw + p.
-// blockIdx.x walks N, so the blocks of one row panel run together and its
-// A tile comes from L2 after the first; blockIdx.y walks M.
-template <typename Acc, typename OutT>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_kernel(const uint8_t* __restrict__ A, long long lda,
-                const uint8_t* __restrict__ B, long long ldb, long long M, int N, int Kb,
-                const float* __restrict__ w_scale, float s_x,
-                const float* __restrict__ bias, OutT* __restrict__ out, long long ldc,
-                long long hw, long long m_base) {
-  extern __shared__ __align__(16) uint8_t smem[];
+template <int BM, int BN, int STAGES>
+struct Smem {
+  static constexpr int A_BYTES = BM * BKB;
+  static constexpr int B_BYTES = BN * BKB;
+  static constexpr int RING = STAGES * (A_BYTES + B_BYTES);
+  static constexpr int STAGING = (BM / 16) * STG_BYTES;
+  static constexpr int TABLES = (BM / 64) * 2 * BN * 4;
+  static constexpr int BYTES = 1024 + RING + 16 * STAGES + STAGING + TABLES;
+  static_assert(BYTES <= 232448, "shared memory");
+};
+
+// One element of the output tile, dequantized (scale = s_w[n] * s_x, taken
+// first, no fused multiply-add) and written to `d` as the output dtype.
+template <typename Acc>
+__device__ __forceinline__ void put(uint8_t* d, Acc a, float scale, float bias, int kind,
+                                   bool scaled, bool biased) {
+  float v = acc_f(a);
+  if (scaled) v = __fmul_rn(v, scale);
+  if (biased) v = __fadd_rn(v, bias);
+  if (kind == 1)
+    *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
+  else if (kind == 0)
+    *reinterpret_cast<float*>(d) = v;
+  else
+    *reinterpret_cast<int*>(d) = acc_raw(a);
+}
+
+__device__ __forceinline__ void copy_elem(uint8_t* d, const uint8_t* s, int es) {
+  if (es == 2)
+    *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(s);
+  else
+    *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// Output tile t of a block: its row panel (m0: the first linear output row,
+// or for conv mode 2 the image b and the corner (ho0, wo0) of its block of
+// pixels) and its first column n0.
+struct Tile {
+  long long m0;
+  int b, ho0, wo0, n0;
+};
+template <int BM, int BN>
+__device__ __forceinline__ Tile tile_of(const GemmArgs& p, long long t, int ntn) {
+  Tile r;
+  r.n0 = static_cast<int>(t % ntn) * BN;
+  const long long panel = t / ntn;
+  if (p.conv == 2) {
+    const long long per_image = static_cast<long long>(p.tiles_h) * p.tiles_w;
+    r.b = static_cast<int>(panel / per_image);
+    const int rem = static_cast<int>(panel - r.b * per_image);
+    r.ho0 = rem / p.tiles_w * (BM / 16);
+    r.wo0 = rem % p.tiles_w * 16;
+    r.m0 = 0;
+  } else {
+    r.m0 = panel * BM;
+    r.b = r.ho0 = r.wo0 = 0;
+  }
+  return r;
+}
+
+// The linear output row (b, ho, wo) of row r of tile `tl`, or -1 where the
+// row lies outside the output.
+template <int BM>
+__device__ __forceinline__ long long row_of(const GemmArgs& p, const Tile& tl, int r) {
+  if (p.conv == 2) {
+    const int ho = tl.ho0 + r / 16;
+    const int wo = tl.wo0 + r % 16;
+    if (ho >= p.Ho || wo >= p.Wo) return -1;
+    return (static_cast<long long>(tl.b) * p.Ho + ho) * p.Wo + wo;
+  }
+  const long long gm = tl.m0 + r;
+  return gm < p.M ? gm : -1;
+}
+
+// A persistent grid: block b takes output tiles b, b + gridDim.x, ... of
+// (BM = 64 * WGS) x BN, tile t at row panel t / (N tiles) and column tile
+// t % (N tiles), so the blocks in flight share row panels and A streams
+// from device memory once. Warpgroups 0 .. WGS - 1 consume, warpgroup WGS
+// produces; the producer runs ahead into the next tile's k tiles while the
+// consumers store a tile's outputs straight from their registers.
+template <typename In, int BN, int WGS, int STAGES>
+__global__ void __launch_bounds__(128 * (WGS + 1), 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_b, const GemmArgs p) {
+  using Acc = typename AccOf<In>::type;
+  constexpr int BM = 64 * WGS;
+  using S = Smem<BM, BN, STAGES>;
+  constexpr int KE = BKB / sizeof(In);  // k tile in elements (TMA coordinates)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sa = smem;
+  uint8_t* sb = smem + STAGES * S::A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::RING);
+  uint64_t* empty = full + STAGES;
+  uint8_t* staging = smem + S::RING + 16 * STAGES;
+  float* tables = reinterpret_cast<float*>(staging + S::STAGING);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps over M, 4 over N: 64 x 32 each
-  const int wn = warp & 3;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const int n0 = blockIdx.x * BN;
+  const int wg = tid / 128;
+  const int ntn = (p.N + BN - 1) / BN;
+  const long long panels =
+      p.conv == 2 ? p.M / (static_cast<long long>(p.Ho) * p.Wo) * p.tiles_h * p.tiles_w
+                  : (p.M + BM - 1) / BM;
+  const long long ntiles = panels * ntn;
+  const int nk = (p.Kb + BKB - 1) / BKB;
 
-  auto load = [&](int stage, int kb0) {
-    uint8_t* as = smem + stage * STAGE_BYTES;
-    uint8_t* bs = as + BM * SROW;
-#pragma unroll
-    for (int c = tid; c < BM * (BK / 16); c += GEMM_THREADS) {
-      const int r = c >> 3;
-      const int cc = (c & 7) * 16;
-      const bool ok = m0 + r < M && kb0 + cc < Kb;
-      cp_async16(as + r * SROW + cc, ok ? A + (m0 + r) * lda + kb0 + cc : A, ok);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], p.conv == 1 ? 129 : 1);  // gather: 128 threads + expect_tx
+      mbar_init(&empty[s], 128 * WGS);
     }
-#pragma unroll
-    for (int c = tid; c < BN * (BK / 16); c += GEMM_THREADS) {
-      const int r = c >> 3;
-      const int cc = (c & 7) * 16;
-      const bool ok = n0 + r < N && kb0 + cc < Kb;
-      cp_async16(bs + r * SROW + cc,
-                 ok ? B + static_cast<long long>(n0 + r) * ldb + kb0 + cc : B, ok);
-    }
-  };
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // ldmatrix row and column of this lane: A as (rows 0-7 | 8-15) x (bytes
-  // 0-15 | 16-31), B as (n 0-7 | 8-15) x (bytes 0-15 | 16-31)
-  const int a_row = wm * 64 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 16;
-  const int b_row = wn * 32 + (lane & 7) + (lane >> 4) * 8;
-  const int b_col = ((lane >> 3) & 1) * 16;
-
-  const int nk = (Kb + BK - 1) / BK;
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load(st, st * BK);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed
-    __syncthreads();              // and every warp is done with tile kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < nk) load(next % STAGES, next * BK);
-    cp_async_commit();
-    const uint8_t* as = smem + (kt % STAGES) * STAGE_BYTES;
-    const uint8_t* bs = as + BM * SROW;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[4][4];
-      uint32_t bf[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], as + (a_row + mi * 16) * SROW + ks + a_col);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4(bf[nj], bs + (b_row + nj * 16) * SROW + ks + b_col);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-  }
-
-  // epilogue: the output tile goes through shared memory (the ring is free
-  // now), so that the stores to device memory run along contiguous
-  // addresses: along n for row-major output, along m (pixels) for NCHW
-  cp_async_wait<0>();
   __syncthreads();
-  // tile[ml][nl] for row-major output, tile[nl][ml] for NCHW (BM == BN):
-  // either way a 16-byte run of the output is 16 contiguous bytes here
-  constexpr int TS = BN + (sizeof(OutT) == 2 ? 8 : 4);  // tile row stride
-  OutT* tile = reinterpret_cast<OutT*>(smem);
-  const bool nchw = hw > 0;
-  long long* row_b = reinterpret_cast<long long*>(smem + BM * TS * sizeof(OutT));
-  long long* row_p = row_b + BM;
-  if (tid < BM) {  // (image, pixel) of each row for NCHW output
-    const long long gm = m_base + m0 + tid;
-    row_b[tid] = hw > 0 ? gm / hw : 0;
-    row_p[tid] = hw > 0 ? gm - row_b[tid] * hw : gm;
-  }
-  const int g = lane >> 2;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ml = wm * 64 + mi * 16 + g + half * 8;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {  // c0, c1 at (row g, cols 2t, 2t + 1); c2, c3 at g + 8
-          const int nl = wn * 32 + ni * 8 + (lane & 3) * 2 + j;
-          const int n = n0 + nl;
-          const Acc a = acc[mi][ni][half * 2 + j];
-          float v = acc_f(a);
-          if (n < N) {
-            if (w_scale != nullptr) v = __fmul_rn(v, __fmul_rn(w_scale[n], s_x));
-            if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+
+  if (wg == WGS) {
+    // ---------------------------------------------------------- producer
+    if constexpr (WGS >= 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int t = tid - 128 * WGS;
+    int kc = 0;  // k tiles issued by this block, over all its tiles
+    if (p.conv != 1) {
+      if (t == 0) {
+        for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+          const Tile tl = tile_of<BM, BN>(p, tile, ntn);
+          for (int kt = 0; kt < nk; ++kt, ++kc) {
+            const int s = kc % STAGES;
+            if (kc >= STAGES) mbar_wait(&empty[s], ((kc / STAGES) - 1) & 1);
+            mbar_expect_tx(&full[s], S::A_BYTES + S::B_BYTES);
+            if (p.conv == 2) {  // tap (dy, dx), channels c .. c + 127 of the pixel block
+              const int kb = kt * BKB;
+              const int tap = kb / p.Cp;
+              const int dy = tap / p.kw;
+              const int dx = tap - dy * p.kw;
+              tma_load_4d(sa + s * S::A_BYTES, &tma_a, &full[s], kb - tap * p.Cp,
+                          tl.wo0 + dx - p.pw, tl.ho0 + dy - p.ph, tl.b);
+            } else {
+              tma_load_2d(sa + s * S::A_BYTES, &tma_a, &full[s], kt * KE,
+                          static_cast<int>(tl.m0));
+            }
+            tma_load_2d(sb + s * S::B_BYTES, &tma_b, &full[s], kt * KE, tl.n0);
           }
-          tile[nchw ? nl * TS + ml : ml * TS + nl] = to_out<OutT>(v, a);
+        }
+      }
+    } else {
+      // thread t gathers 16-byte chunk j of rows r0, r0 + 16, ...
+      constexpr int RPT = BM / 16;
+      const int j = t & 7;
+      const int r0 = t >> 3;
+      for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const long long m0 = tile / ntn * BM;
+        const int n0 = static_cast<int>(tile % ntn) * BN;
+        int y0[RPT], x0[RPT], by0[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const long long m = m0 + r0 + 16 * i;
+          if (m < p.M) {
+            const int wo = static_cast<int>(m % p.Wo);
+            const long long t2 = m / p.Wo;
+            const int ho = static_cast<int>(t2 % p.Ho);
+            const int b = static_cast<int>(t2 / p.Ho);
+            y0[i] = ho * p.sh - p.ph;
+            x0[i] = wo * p.sw - p.pw;
+            by0[i] = b * p.H + y0[i];
+          } else {
+            y0[i] = -(1 << 28);  // every tap out of bounds: zero fill
+            x0[i] = 0;
+            by0[i] = 0;
+          }
+        }
+        for (int kt = 0; kt < nk; ++kt, ++kc) {
+          const int s = kc % STAGES;
+          if (kc >= STAGES) mbar_wait(&empty[s], ((kc / STAGES) - 1) & 1);
+          if (t == 0) {
+            mbar_expect_tx(&full[s], S::B_BYTES);
+            tma_load_2d(sb + s * S::B_BYTES, &tma_b, &full[s], kt * KE, n0);
+          }
+          const int kb = kt * BKB + j * 16;
+          if (kb < p.Kb) {
+            const int tap = kb / p.Cp;
+            const int c = kb - tap * p.Cp;
+            const int dy = tap / p.kw;
+            const int dx = tap - dy * p.kw;
+            uint8_t* dst = sa + s * S::A_BYTES;
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              const int r = r0 + 16 * i;
+              const int y = y0[i] + dy;
+              const int xx = x0[i] + dx;
+              const bool ok = y >= 0 && y < p.H && xx >= 0 && xx < p.W;
+              const int8_t* src =
+                  ok ? p.x + ((static_cast<long long>(by0[i] + dy) * p.W + xx) * p.Cp + c)
+                     : p.x;
+              cp_async16(dst + r * BKB + ((j ^ (r & 7)) << 4), src, ok);
+            }
+          }
+          // the stage's barrier counts this thread's arrival when its copies
+          // have landed; the thread goes on to the next k tile at once
+          cp_async_arrive_noinc(&full[s]);
         }
       }
     }
-  }
-  __syncthreads();
-  // 16-byte stores of VEC outputs where the run of VEC is whole and aligned:
-  // VEC columns of a row (row-major), VEC pixels of a channel (NCHW, where
-  // hw and m_base are multiples of VEC, so a run never crosses an image)
-  constexpr int VEC = 16 / sizeof(OutT);
-  const bool out16 = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  if (nchw) {
-    const bool vec = out16 && hw % VEC == 0 && m_base % VEC == 0;
-    for (int i = tid; i < (BM / VEC) * BN; i += GEMM_THREADS) {
-      const int ml = (i % (BM / VEC)) * VEC;
-      const int nl = i / (BM / VEC);
-      const int n = n0 + nl;
-      if (n >= N) continue;
-      if (vec && m0 + ml + VEC <= M) {
-        *reinterpret_cast<uint4*>(out + (row_b[ml] * N + n) * hw + row_p[ml]) =
-            *reinterpret_cast<const uint4*>(&tile[nl * TS + ml]);
-      } else {
-        for (int e = 0; e < VEC && m0 + ml + e < M; ++e)
-          out[(row_b[ml + e] * N + n) * hw + row_p[ml + e]] = tile[nl * TS + ml + e];
-      }
-    }
   } else {
-    const bool vec = out16 && ldc % VEC == 0;
-    for (int i = tid; i < BM * (BN / VEC); i += GEMM_THREADS) {
-      const int ml = i / (BN / VEC);
-      const int nl = (i % (BN / VEC)) * VEC;
-      if (m0 + ml >= M) continue;
-      OutT* dst = out + row_p[ml] * ldc + n0 + nl;
-      if (vec && n0 + nl + VEC <= N) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(&tile[ml * TS + nl]);
-      } else {
-        for (int e = 0; e < VEC && n0 + nl + e < N; ++e) dst[e] = tile[ml * TS + nl + e];
+    // ---------------------------------------------------------- consumers
+    // what the producer gave up, shared by the consumers (multiples of 8)
+    if constexpr (WGS == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    if constexpr (WGS == 3) asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+    const int lt = tid & 127;
+    const int lane = lt & 31;
+    const bool nchw = p.hw > 0;
+    const int es = p.out_kind == 1 ? 2 : 4;
+    const int warp = lt >> 5;  // this warp's 16 rows: wg * 64 + warp * 16 ..
+    uint8_t* stg = staging + (wg * 4 + warp) * STG_BYTES;  // this warp's 16 rows
+    float* t_scale = tables + wg * 2 * BN;  // this warpgroup's s_w[n] * s_x, bias[n]
+    float* t_bias = t_scale + BN;
+    const bool scaled = p.w_scale != nullptr;
+    const bool biased = p.bias != nullptr;
+    // a chunk of columns whose rows are at most 128 bytes: 64 bf16 or 32
+    // four-byte outputs (BN itself when narrower)
+    const int cw = min(128 / es, BN);
+    const int row_bytes = cw * es;
+    uint8_t* out = static_cast<uint8_t*>(p.out);
+    const bool vec_rows = !nchw && (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                          (p.ldc * es) % 16 == 0;
+    const bool vec_nchw = nchw && (reinterpret_cast<uintptr_t>(out) & 15) == 0 &&
+                          p.hw % 8 == 0;
+    Acc acc[BN / 2];
+    int kc = 0;
+    for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const Tile tl = tile_of<BM, BN>(p, tile, ntn);
+      const int n0 = tl.n0;
+      wg_sync(wg);  // the previous tile's epilogue is done with the table
+      for (int i = lt; i < BN; i += 128) {
+        const int n = n0 + i;
+        t_scale[i] = scaled && n < p.N ? __fmul_rn(p.w_scale[n], p.s_x) : 1.f;
+        t_bias[i] = biased && n < p.N ? p.bias[n] : 0.f;
+      }
+      for (int kt = 0; kt < nk; ++kt, ++kc) {
+        const int s = kc % STAGES;
+        mbar_wait(&full[s], (kc / STAGES) & 1);
+        if (p.conv == 1) fence_async_shared();  // the gathered tile, to wgmma's proxy
+        const uint64_t da = desc_sw128(sa + s * S::A_BYTES + wg * 64 * BKB);
+        const uint64_t db = desc_sw128(sb + s * S::B_BYTES);
+        const int steps = min(BKB, p.Kb - kt * BKB) / KSTEP;
+        const int keep = kt > 0;  // the tile's first product overwrites the sums
+        wgmma_fence();
+        if (steps == 4) {  // a whole k tile; the last one may stop short
+          k_steps<In, BN, 4>(acc, da, db, keep);
+        } else if (steps == 3) {
+          k_steps<In, BN, 3>(acc, da, db, keep);
+        } else if (steps == 2) {
+          k_steps<In, BN, 2>(acc, da, db, keep);
+        } else {
+          k_steps<In, BN, 1>(acc, da, db, keep);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k tile's products are done: release it
+        if (kt > 0) mbar_arrive(&empty[(kc - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(kc - 1) % STAGES]);
+      fence_regs(acc);
+
+      wg_sync(wg);  // the table is written
+
+      // epilogue: each warp stages its 16 rows through shared memory, a
+      // chunk of cw columns at a time, then stores them as 16-byte runs
+      // along n (row-major) or along pixels (NCHW)
+      const int rw = wg * 64 + warp * 16;  // the warp's first row in the tile
+      for (int c0 = 0; c0 < BN && n0 + c0 < p.N; c0 += cw) {
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          if (jn * 8 < c0 || jn * 8 >= c0 + cw) continue;
+          const int cl = jn * 8 - c0 + (lane & 3) * 2;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint8_t* d = stg + ((lane >> 2) + 8 * h) * STG_PITCH + cl * es;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              put(d + e * es, acc[jn * 4 + h * 2 + e], t_scale[c0 + cl + e],
+                  t_bias[c0 + cl + e], p.out_kind, scaled, biased);
+          }
+        }
+        __syncwarp();
+        if (!nchw) {
+          const int pieces = row_bytes / 16;
+          const int per = 16 / es;
+          for (int i = lane; i < 16 * pieces; i += 32) {
+            const int rl = i / pieces;
+            const int nl = (i - rl * pieces) * per;
+            const long long gm = row_of<BM>(p, tl, rw + rl);
+            const int n = n0 + c0 + nl;
+            if (gm < 0 || n >= p.N) continue;
+            const uint8_t* src = stg + rl * STG_PITCH + nl * es;
+            uint8_t* dst = out + (gm * p.ldc + n) * es;
+            if (vec_rows && n + per <= p.N) {
+              *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+            } else {
+              for (int e = 0; e < per && n + e < p.N; ++e)
+                copy_elem(dst + e * es, src + e * es, es);
+            }
+          }
+        } else {
+          // lane pair (2 cl, 2 cl + 1) writes channel cl's 16 pixels, 8 each:
+          // rows h8 .. h8 + 7, image b8, first pixel p8, as one 16-byte store
+          // where they are one aligned run of one image (32-bit arithmetic:
+          // the entry points keep NCHW rows below 2^31)
+          for (int i = lane; i < 2 * cw; i += 32) {
+            const int cl = i >> 1;
+            const int h8 = (i & 1) * 8;
+            const int n = n0 + c0 + cl;
+            if (n >= p.N) continue;
+            const uint8_t* src = stg + h8 * STG_PITCH + cl * es;
+            const long long g0 = row_of<BM>(p, tl, rw + h8);
+            const unsigned r0 = static_cast<unsigned>(p.m_base + (g0 < 0 ? 0 : g0));
+            const unsigned hw = static_cast<unsigned>(p.hw);
+            const unsigned b8 = r0 / hw;
+            const unsigned p8 = r0 - b8 * hw;
+            if (vec_nchw && g0 >= 0 && row_of<BM>(p, tl, rw + h8 + 7) == g0 + 7 &&
+                p8 % 8 == 0 && p8 + 8 <= hw) {
+              uint32_t w[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                w[e] = es == 2 ? *reinterpret_cast<const uint16_t*>(src + e * STG_PITCH)
+                               : *reinterpret_cast<const uint32_t*>(src + e * STG_PITCH);
+              uint8_t* dst = out + ((static_cast<long long>(b8) * p.N + n) * p.hw + p8) * es;
+              if (es == 2) {
+                *reinterpret_cast<uint4*>(dst) =
+                    make_uint4(w[0] | (w[1] << 16), w[2] | (w[3] << 16), w[4] | (w[5] << 16),
+                               w[6] | (w[7] << 16));
+              } else {
+                *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+                *reinterpret_cast<uint4*>(dst + 16) = make_uint4(w[4], w[5], w[6], w[7]);
+              }
+            } else {
+              for (int e = 0; e < 8; ++e) {
+                const long long g = row_of<BM>(p, tl, rw + h8 + e);
+                if (g < 0) continue;
+                const long long r = p.m_base + g;
+                const long long b = r / p.hw;
+                copy_elem(out + ((b * p.N + n) * p.hw + (r - b * p.hw)) * es,
+                          src + e * STG_PITCH, es);
+              }
+            }
+          }
+        }
+        __syncwarp();
       }
     }
   }
+}
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encoder() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, cols) matrix with a row stride in bytes, read in boxes of
+// (box_rows, 128 bytes) into the 128-byte swizzle; out-of-bounds zero.
+bool encode(CUtensorMap* map, const void* base, bool bf16, long long rows, long long cols,
+            long long stride, int box_rows) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(bf16 ? BKB / 2 : BKB),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+            const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An NHWC int8 (B, H, W, Cp) read in boxes of 128 channels x 16 pixels x
+// box_h rows of one image, into the 128-byte swizzle; taps outside the
+// image (negative or past the edge) are zero-filled.
+bool encode_taps(CUtensorMap* map, const void* x, int B, int H, int W, int Cp, int box_h) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cp), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(Cp),
+                                 static_cast<cuuint64_t>(Cp) * W,
+                                 static_cast<cuuint64_t>(Cp) * W * H};
+  const cuuint32_t box[4] = {BKB, 16, static_cast<cuuint32_t>(box_h), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The weights' tensor maps, encoded once: a map holds nothing but the
+// address, shape, stride and box, so equal keys give equal maps.
+bool weight_map(CUtensorMap* map, const void* w, bool bf16, long long rows, long long cols,
+                long long stride, int box_rows) {
+  using Key = std::tuple<const void*, bool, long long, long long, long long, int>;
+  static std::mutex lock;
+  static std::map<Key, CUtensorMap> cache;
+  const Key key{w, bf16, rows, cols, stride, box_rows};
+  std::lock_guard<std::mutex> guard(lock);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode(map, w, bf16, rows, cols, stride, box_rows)) return false;
+  if (cache.size() > 8192) cache.clear();
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <typename In, int BN, int WGS, int STAGES>
+cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, const GemmArgs& p,
+                   cudaStream_t stream) {
+  constexpr int BM = 64 * WGS;
+  constexpr int bytes = Smem<BM, BN, STAGES>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_kernel<In, BN, WGS, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
+  const long long panels =
+      p.conv == 2 ? p.M / (static_cast<long long>(p.Ho) * p.Wo) * p.tiles_h * p.tiles_w
+                  : (p.M + BM - 1) / BM;
+  const long long tiles = panels * ((p.N + BN - 1) / BN);
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  gemm_kernel<In, BN, WGS, STAGES><<<grid, 128 * (WGS + 1), bytes, stream>>>(ma, mb, p);
+  return cudaGetLastError();
+}
+
+// op 0: int8 operands, 1: bf16. The instance must be one of the table's.
+cudaError_t dispatch(int op, int bn, int wgs, int stages, const CUtensorMap& ma,
+                     const CUtensorMap& mb, const GemmArgs& p, cudaStream_t stream) {
+#define S2M2_GEMM_CASE(OP, BN, WGS, STAGES)                                         \
+  if (op == OP && bn == BN && wgs == WGS && stages == STAGES)                       \
+    return launch<std::conditional_t<OP == 0, int8_t, __nv_bfloat16>, BN, WGS, STAGES>( \
+        ma, mb, p, stream);
+  S2M2_GEMM_INSTANCES(S2M2_GEMM_CASE)
+#undef S2M2_GEMM_CASE
+  return cudaErrorInvalidValue;  // a plan this build was not compiled for
 }
 
 template <typename T>
 cudaError_t launch_rows(const void* x, void* q, long long M, int K, int Kp,
                         long long inner, long long ld, long long outer, float inv,
                         cudaStream_t stream) {
-  const long long n = M * (Kp / 8);
+  const long long n = M * (Kp / 16);
   const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  const bool vec = K % 8 == 0 && ld % 8 == 0 && outer % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   pack_rows_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(x),
                                                   static_cast<int8_t*>(q), M, K, Kp,
-                                                  inner, ld, outer, inv);
+                                                  inner, ld, outer, inv, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_nhwc(const void* x, void* q, int B, int C, long long HW, int Cp, float inv,
+                        cudaStream_t stream) {
+  const long long pt = (HW + NHWC_P - 1) / NHWC_P;
+  if (pt > 0x7fffffffLL || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(pt), (Cp + NHWC_C - 1) / NHWC_C, B);
+  pack_nhwc_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(x),
+                                                static_cast<int8_t*>(q), C, HW, Cp, inv);
   return cudaGetLastError();
 }
 
@@ -418,24 +931,26 @@ cudaError_t launch_im2col(const void* x, void* q, long long m_begin, long long r
   return cudaGetLastError();
 }
 
-template <typename Acc, typename OutT>
-cudaError_t launch_gemm(const void* a, long long lda, const void* w, long long ldb,
-                        long long M, int N, int Kb, const void* w_scale, float s_x,
-                        const void* bias, void* out, long long ldc, long long hw,
-                        long long m_base, cudaStream_t stream) {
-  if ((M + BM - 1) / BM > 65535 || (N + BN - 1) / BN > 65535) return cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<Acc, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((N + BN - 1) / BN, static_cast<unsigned>((M + BM - 1) / BM));
-  gemm_kernel<Acc, OutT><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(
-      static_cast<const uint8_t*>(a), lda, static_cast<const uint8_t*>(w), ldb, M, N,
-      Kb, static_cast<const float*>(w_scale), s_x, static_cast<const float*>(bias),
-      static_cast<OutT*>(out), ldc, hw, m_base);
-  return cudaGetLastError();
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+GemmArgs epilogue_args(long long M, int N, int Kb, const void* w_scale, float s_x,
+                       const void* bias, void* out, long long ldc, long long hw,
+                       long long m_base, int out_kind) {
+  GemmArgs p;
+  std::memset(&p, 0, sizeof(p));
+  p.M = M;
+  p.N = N;
+  p.Kb = Kb;
+  p.w_scale = static_cast<const float*>(w_scale);
+  p.s_x = s_x;
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.out_kind = out_kind;
+  p.ldc = ldc;
+  p.hw = hw;
+  p.m_base = m_base;
+  return p;
+}
 
 }  // namespace
 
@@ -449,6 +964,17 @@ extern "C" int s2m2_quantize_rows(const void* x, void* q, long long M, int K, in
   if (dtype == 0) return launch_rows<float>(x, q, M, K, Kp, inner, ld, outer, inv, s);
   if (dtype == 1)
     return launch_rows<__nv_bfloat16>(x, q, M, K, Kp, inner, ld, outer, inv, s);
+  return cudaErrorInvalidValue;
+}
+
+// An NCHW x (B, C, H, W) -> q (B, H, W, Cp) int8, channels C .. Cp zero.
+extern "C" int s2m2_quantize_nhwc(const void* x, void* q, int B, int C, long long HW, int Cp,
+                                  float inv, int dtype, void* stream) {
+  if (B < 1 || C < 1 || HW < 1 || Cp < C || Cp % 32 != 0 || !aligned16(q))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_nhwc<float>(x, q, B, C, HW, Cp, inv, s);
+  if (dtype == 1) return launch_nhwc<__nv_bfloat16>(x, q, B, C, HW, Cp, inv, s);
   return cudaErrorInvalidValue;
 }
 
@@ -471,48 +997,75 @@ extern "C" int s2m2_quantize_im2col(const void* x, void* q, long long m_begin,
   return cudaErrorInvalidValue;
 }
 
-// a (M, K) int8, w (N, K) int8, K a multiple of 32, row strides lda, ldb in
-// bytes (multiples of 16). w_scale (N,) float32 or null (then no scaling),
+// Row mode. a (M, K) and w (N, K), both int8 (op 0) or bf16 (op 1), row
+// strides lda, ldb in bytes (multiples of 16), K * element size = Kb, a
+// multiple of 32 bytes. w_scale (N,) float32 or null (then no scaling),
 // bias (N,) float32 or null. out_kind 0 float32, 1 bfloat16, 2 the raw
-// int32 accumulators. hw > 0: out is NCHW and rows are m_base + m.
-extern "C" int s2m2_int8_gemm(const void* a, long long lda, const void* w,
-                              long long ldb, long long M, int N, int K,
-                              const void* w_scale, float s_x, const void* bias, void* out,
-                              long long ldc, long long hw, long long m_base, int out_kind,
-                              void* stream) {
-  if (M < 1 || N < 1 || K < 32 || K % 32 != 0 || lda % 16 != 0 || ldb % 16 != 0 ||
-      !aligned16(a) || !aligned16(w))
+// int32 accumulators (int8 only). hw > 0: out is NCHW and rows are
+// m_base + m. (bn, wgs, stages): the instance, from the wrapper's plan.
+extern "C" int s2m2_gemm(const void* a, long long lda, const void* w, long long ldb,
+                         long long M, int N, int Kb, int op, const void* w_scale, float s_x,
+                         const void* bias, void* out, long long ldc, long long hw,
+                         long long m_base, int out_kind, int bn, int wgs, int stages,
+                         void* stream) {
+  const int es = op == 1 ? 2 : 1;
+  if (hw > 0 && m_base + M >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || Kb < 32 || Kb % 32 != 0 || lda % 16 != 0 || ldb % 16 != 0 ||
+      !aligned16(a) || !aligned16(w) || out_kind < 0 || out_kind > 2 ||
+      (op == 1 && out_kind == 2) || op < 0 || op > 1)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_kind == 0)
-    return launch_gemm<int, float>(a, lda, w, ldb, M, N, K, w_scale, s_x, bias, out, ldc,
-                                   hw, m_base, s);
-  if (out_kind == 1)
-    return launch_gemm<int, __nv_bfloat16>(a, lda, w, ldb, M, N, K, w_scale, s_x, bias,
-                                           out, ldc, hw, m_base, s);
-  if (out_kind == 2)
-    return launch_gemm<int, int>(a, lda, w, ldb, M, N, K, nullptr, 0.f, nullptr, out,
-                                 ldc, hw, m_base, s);
-  return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (!encode(&ma, a, op == 1, M, Kb / es, lda, 64 * wgs) ||
+      !weight_map(&mb, w, op == 1, N, Kb / es, ldb, bn))
+    return cudaErrorInvalidValue;
+  const GemmArgs p = epilogue_args(M, N, Kb, w_scale, s_x, bias, out, ldc, hw, m_base,
+                                   out_kind);
+  return dispatch(op, bn, wgs, stages, ma, mb, p, static_cast<cudaStream_t>(stream));
 }
 
-// a (M, K) bf16, w (N, K) bf16, K a multiple of 16, row strides in
-// elements (multiples of 8): out (M, N) = a w^T with float32 accumulation,
-// out_kind 0 float32, 1 bfloat16.
-extern "C" int s2m2_bf16_gemm(const void* a, long long lda, const void* w, long long ldb,
-                              long long M, int N, int K, void* out, long long ldc,
-                              int out_kind, void* stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || lda % 8 != 0 || ldb % 8 != 0 ||
-      !aligned16(a) || !aligned16(w))
+// Conv mode (implicit GEMM), int8: x the NHWC int8 (B, H, W, Cp) of a
+// quantize_nhwc, w (N, kh * kw * Cp) int8 in (dy, dx, c) order with row
+// stride ldb bytes; output rows m = (b, ho, wo), M = B * Ho * Wo, with the
+// epilogue of s2m2_gemm. tiled (stride 1, Cp % 128 == 0 only): A's tiles
+// are (4 * wgs) x 16 blocks of output pixels, each tap one TMA box; else
+// the producer gathers A's rows with cp.async.
+extern "C" int s2m2_conv_gemm(const void* x, int B, int H, int W, int Cp, int Ho, int Wo,
+                              int kh, int kw, int sh, int sw, int ph, int pw, const void* w,
+                              long long ldb, int N, const void* w_scale, float s_x,
+                              const void* bias, void* out, long long ldc, long long hw,
+                              long long m_base, int out_kind, int tiled, int bn, int wgs,
+                              int stages, void* stream) {
+  const long long Kb = static_cast<long long>(kh) * kw * Cp;
+  if (B < 1 || H < 1 || W < 1 || Cp < 32 || Cp % 32 != 0 || Ho < 1 || Wo < 1 || kh < 1 ||
+      kw < 1 || sh < 1 || sw < 1 || ph < 0 || pw < 0 || N < 1 || Kb > 0x7fffffffLL ||
+      ldb % 16 != 0 || !aligned16(x) || !aligned16(w) || out_kind < 0 || out_kind > 2 ||
+      static_cast<long long>(B) * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_kind == 0)
-    return launch_gemm<float, float>(a, lda * 2, w, ldb * 2, M, N, K * 2, nullptr, 0.f,
-                                     nullptr, out, ldc, 0, 0, s);
-  if (out_kind == 1)
-    return launch_gemm<float, __nv_bfloat16>(a, lda * 2, w, ldb * 2, M, N, K * 2,
-                                             nullptr, 0.f, nullptr, out, ldc, 0, 0, s);
-  return cudaErrorInvalidValue;
+  if ((tiled && (sh != 1 || sw != 1 || Cp % BKB != 0 || wgs < 1 || wgs > 3)) ||
+      (hw > 0 && m_base + static_cast<long long>(B) * Ho * Wo >= (1LL << 31)))
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  std::memset(&ma, 0, sizeof(ma));
+  if ((tiled && !encode_taps(&ma, x, B, H, W, Cp, 4 * wgs)) ||
+      !weight_map(&mb, w, false, N, Kb, ldb, bn))
+    return cudaErrorInvalidValue;
+  GemmArgs p = epilogue_args(static_cast<long long>(B) * Ho * Wo, N, static_cast<int>(Kb),
+                             w_scale, s_x, bias, out, ldc, hw, m_base, out_kind);
+  p.conv = tiled ? 2 : 1;
+  p.tiles_w = (Wo + 15) / 16;
+  p.tiles_h = (Ho + 4 * wgs - 1) / (4 * wgs);
+  p.x = static_cast<const int8_t*>(x);
+  p.H = H;
+  p.W = W;
+  p.Cp = Cp;
+  p.Ho = Ho;
+  p.Wo = Wo;
+  p.kw = kw;
+  p.sh = sh;
+  p.sw = sw;
+  p.ph = ph;
+  p.pw = pw;
+  return dispatch(0, bn, wgs, stages, ma, mb, p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* s2m2_error_string(int err) {

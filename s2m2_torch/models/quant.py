@@ -17,8 +17,13 @@ Mechanics, as in the JAX package:
   multi-head scanline blocks, and the int8 residual stream of "int8r".
 
 On CUDA tensors every quantized product is kernel E's two launches
-(`ops/int8_gemm.py`); on CPU tensors their plain versions. The state is
-thread-local, as in the JAX package.
+(`ops/int8_gemm.py`): a pack, then a GEMM. A conv whose input has at
+least `ig.IMPLICIT_MIN_C` channels packs its input once into an NHWC int8
+tensor and runs as an implicit GEMM on it against its weight reordered to
+(dy, dx, c) taps (`conv_weight_taps`, cached beside the prequantized
+weight); a narrower conv packs explicit im2col rows, in chunks of at most
+`MAX_PACK_BYTES`; a linear packs token rows. On CPU tensors the plain
+versions run. The state is thread-local, as in the JAX package.
 
 Left out of the port: int8 attention cores (`sdpa_maybe_quantized`, the
 `int8_attn` opt-in) and bf16 accumulators (`int8_acc_bf16`), both off by
@@ -35,8 +40,9 @@ import torch.nn.functional as F
 
 from ..ops import int8_gemm as ig
 
-# One launch's im2col rows stay below 1 GiB; a larger conv site is packed
-# and multiplied in chunks of output rows.
+# One launch's explicit im2col rows (convs with C < ig.IMPLICIT_MIN_C) stay
+# below 1 GiB; a larger such site is packed and multiplied in chunks of
+# output rows.
 MAX_PACK_BYTES = 1 << 30
 
 # Subtrees the JAX package repacks at trace time (s2m2_tpu/models/quant.py
@@ -207,6 +213,15 @@ def prequant_of(mod):
     return None if w_q is None else (w_q, mod.w_scale)
 
 
+def conv_taps(w_q, cin, kh, kw):
+    """The implicit GEMM's weight of a conv with `cin` inputs, or None for a
+    conv that keeps the explicit im2col rows (or a 1x1 one, whose (N, Kp)
+    weight already is in tap order)."""
+    if not ig.implicit(cin) or kh * kw == 1:
+        return None
+    return ig.conv_weight_taps(w_q, cin, kh, kw)
+
+
 def _is_repacked(name):
     return any(name == p or name.startswith(p + ".") for p in REPACKED_PATHS)
 
@@ -215,7 +230,9 @@ def quantize_model(model, aligned=False, skip_fp32=False):
     """Prequantize every qualifying Conv/Linear weight of `model` once (the
     port of `quantize_params_tree`): the module gains non-persistent
     buffers `w_q` ((N, Kp) int8, the OIHW or (out, in) weight flattened to
-    (N, K) and zero-padded) and `w_scale` ((N,) float32). Repacked subtrees,
+    (N, K) and zero-padded) and `w_scale` ((N,) float32), and a conv that
+    runs as an implicit GEMM also `w_q_taps` (`conv_taps`), so the weight is
+    reordered once and not per request. Repacked subtrees,
     small heads and, with skip_fp32, float32 weights stay float. Returns
     the number of modules prequantized."""
     count = 0
@@ -230,6 +247,10 @@ def quantize_model(model, aligned=False, skip_fp32=False):
             w_q, s_w = quantize_weight(w.detach().reshape(cout, -1))
             mod.register_buffer("w_q", w_q, persistent=False)
             mod.register_buffer("w_scale", s_w, persistent=False)
+            if w.dim() == 4:
+                taps = conv_taps(w_q, cin, w.shape[2], w.shape[3])
+                if taps is not None:
+                    mod.register_buffer("w_q_taps", taps, persistent=False)
             count += 1
     return count
 
@@ -237,7 +258,7 @@ def quantize_model(model, aligned=False, skip_fp32=False):
 def strip_model(model):
     """Drop the prequantized weights of `quantize_model`."""
     for mod in model.modules():
-        for key in ("w_q", "w_scale"):
+        for key in ("w_q", "w_scale", "w_q_taps"):
             mod._buffers.pop(key, None)
 
 
@@ -262,7 +283,8 @@ def prequantize_linear(mod):
 
 class SharedQuantInput:
     """An activation read by several GEMMs: one calibration site, one
-    scale, and one packed int8 copy per GEMM geometry that reads it."""
+    scale, and one packed int8 copy per layout that reads it (the NHWC
+    tensor serves every implicit conv geometry)."""
     __slots__ = ("x", "scale", "packs")
 
     def __init__(self, x, scale=None):
@@ -331,52 +353,68 @@ def _rows_view(x):
 
 def _pack(x, inv, geom, rows=None):
     """quantize_pack of x (a tensor or a SharedQuantInput, whose packs are
-    kept per geometry), logging the launch."""
+    kept per layout), logging the launch. geom None: token rows; "nhwc":
+    the NHWC int8 tensor of an implicit conv; a conv geometry: explicit
+    im2col rows (rows[0]:rows[1] of them when given)."""
     if isinstance(x, SharedQuantInput) and rows is None:
         q = x.packs.get(geom)
         if q is None:
             q = x.packs[geom] = _pack(x.x, inv, geom)
         return q
     x = unwrap(x)
+    if geom == "nhwc":
+        x = x.contiguous()
+        q = ig.quantize_pack(x, inv, nhwc=True)
+        _log("pack", layout="nhwc", rows=q.shape[0] * q.shape[1] * q.shape[2],
+             k=x.shape[1], kp=q.shape[3], conv=None, in_shape=tuple(x.shape),
+             dtype=str(x.dtype))
+        return q
     x = x.contiguous() if geom is not None else _rows_view(x)
     q = ig.quantize_pack(x, inv, conv=geom, rows=rows)
-    _log("pack", rows=q.shape[0], k=(x.shape[-1] if geom is None else
-                                     x.shape[1] * geom[0] * geom[1]),
+    _log("pack", layout="rows" if geom is None else "im2col", rows=q.shape[0],
+         k=(x.shape[-1] if geom is None else x.shape[1] * geom[0] * geom[1]),
          kp=q.shape[1], conv=geom, in_shape=tuple(x.shape), dtype=str(x.dtype))
     return q
 
 
-def _gemm(a, k, qw, s_x, bias, dtype, out=None, m_base=0):
-    w_q, s_w = qw
-    y = ig.int8_gemm(a, w_q, s_w, s_x, bias, dtype, out=out, m_base=m_base)
-    _log("gemm", m=a.shape[0], n=w_q.shape[0], k=k, kp=a.shape[1], out=str(dtype),
-         nchw=out is not None)
+def _gemm(a, k, w_q, s_w, s_x, bias, dtype, out=None, m_base=0, conv=None):
+    y = ig.int8_gemm(a, w_q, s_w, s_x, bias, dtype, out=out, m_base=m_base, conv=conv)
+    m = a.shape[0] if conv is None else y.shape[0] * y.shape[2] * y.shape[3]
+    _log("gemm", m=m, n=w_q.shape[0], k=k, kp=w_q.shape[1], out=str(dtype),
+         nchw=out is not None, conv=conv, a_shape=tuple(a.shape))
     return y
 
 
-def _int8_product(x, s_x, qw, bias, geom):
+def _int8_product(x, s_x, qw, bias, geom, taps=None):
     xf = unwrap(x)
     inv = ig.inv_scale(s_x)
     b32 = None if bias is None else bias.float()
-    n = qw[0].shape[0]
+    w_q, s_w = qw
+    n = w_q.shape[0]
     if geom is None:
-        y = _gemm(_pack(x, inv, None), xf.shape[-1], qw, s_x, b32, xf.dtype)
+        y = _gemm(_pack(x, inv, None), xf.shape[-1], w_q, s_w, s_x, b32, xf.dtype)
         return y.reshape(*xf.shape[:-1], n)
     b, c, h, w = xf.shape
-    k = c * geom[0] * geom[1]
+    kh, kw = geom[:2]
+    k = c * kh * kw
     ho, wo = ig.conv_out_hw(h, w, geom)
-    m = b * ho * wo
     out = torch.empty((b, n, ho, wo), dtype=xf.dtype, device=xf.device)
-    step = max(128, MAX_PACK_BYTES // qw[0].shape[1] // 128 * 128)
+    if ig.implicit(c):  # one NHWC pack and one implicit GEMM
+        if kh * kw > 1 and taps is None:
+            taps = conv_taps(w_q, c, kh, kw)
+        return _gemm(_pack(x, inv, "nhwc"), k, w_q if kh * kw == 1 else taps, s_w, s_x,
+                     b32, xf.dtype, out=out, conv=geom)
+    m = b * ho * wo
+    step = max(128, MAX_PACK_BYTES // w_q.shape[1] // 128 * 128)
     if m <= step:
-        return _gemm(_pack(x, inv, geom), k, qw, s_x, b32, xf.dtype, out=out)
+        return _gemm(_pack(x, inv, geom), k, w_q, s_w, s_x, b32, xf.dtype, out=out)
     for m0 in range(0, m, step):
         a = _pack(xf, inv, geom, rows=(m0, min(m, m0 + step)))
-        _gemm(a, k, qw, s_x, b32, xf.dtype, out=out, m_base=m0)
+        _gemm(a, k, w_q, s_w, s_x, b32, xf.dtype, out=out, m_base=m0)
     return out
 
 
-def gemm_site(x, weight, bias, qw, gate, geom=None):
+def gemm_site(x, weight, bias, qw, gate, geom=None, taps=None):
     """The int8 path of one GEMM, or None for the float path.
 
     x: a tensor or SharedQuantInput; NCHW when `geom` = (kh, kw, sh, sw, ph,
@@ -384,7 +422,8 @@ def gemm_site(x, weight, bias, qw, gate, geom=None):
     float (N, K) GEMM weight, K in (c, kh, kw) order; qw: its
     prequantization (w_q, s_w) or None (then quantized inline); gate: the
     (k_in, cin, cout) shape that decides whether an un-prequantized weight
-    is a site."""
+    is a site. taps: the prequantized implicit-conv weight (`conv_taps`),
+    if the caller has it."""
     s = _ctx()
     prequant = qw is not None
     if s.mode is None or not (prequant or _quantizable(gate[0], gate[2], gate[1])):
@@ -399,7 +438,7 @@ def gemm_site(x, weight, bias, qw, gate, geom=None):
     s_x = x.scale if isinstance(x, SharedQuantInput) else _next_scale()
     if qw is None:
         qw = quantize_weight(weight)
-    return _int8_product(x, s_x, qw, bias, geom)
+    return _int8_product(x, s_x, qw, bias, geom, taps)
 
 
 def conv_maybe_quantized(x, mod):
@@ -409,7 +448,8 @@ def conv_maybe_quantized(x, mod):
     gate = mod.site_gate or (kh * kw * cin, cin, cout)
     ph, pw = (kh // 2, kw // 2) if mod.padding is None else (mod.padding, mod.padding)
     return gemm_site(x, mod.weight.reshape(cout, -1), mod.bias, prequant_of(mod), gate,
-                     (kh, kw, mod.stride, mod.stride, ph, pw))
+                     (kh, kw, mod.stride, mod.stride, ph, pw),
+                     getattr(mod, "w_q_taps", None))
 
 
 def conv_transpose_maybe_quantized(x, mod):

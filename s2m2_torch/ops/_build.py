@@ -10,11 +10,14 @@ on machines with no `nvcc` and no card.
 
 Every kernel wrapper adds one to its entry of `launch_counts` each time it
 launches its kernel, and nowhere else, so a run can show which kernels its
-path went through.
+path went through. `entry` and `call` are the one way the wrappers reach a
+C entry point: the signature is set once, and a launch passes the raw
+current stream and switches the device only when it must.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -22,6 +25,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "s2m2_torch"
@@ -59,11 +64,15 @@ def _lib_path(name: str) -> Path:
 def _generated_headers(name: str) -> dict:
     """{file name: text} of the headers csrc/<name>.cu includes from the
     build directory: kernels A and B compile the instance table of
-    ops/flash_attention.py, so it is kept in one place."""
-    if name != "scanline_attention":
-        return {}
-    from .flash_attention import instances_header
-    return {"scanline_attention_instances.h": instances_header()}
+    ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py, so
+    each table is kept in one place."""
+    if name == "scanline_attention":
+        from .flash_attention import instances_header
+        return {"scanline_attention_instances.h": instances_header()}
+    if name == "int8_gemm":
+        from .int8_gemm import instances_header
+        return {"int8_gemm_instances.h": instances_header()}
+    return {}
 
 
 def _write_generated(name: str) -> float:
@@ -147,3 +156,29 @@ def check(lib: ctypes.CDLL, err: int, what: str):
         lib.s2m2_error_string.argtypes = [ctypes.c_int]
         msg = lib.s2m2_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, symbol: str, argtypes: tuple):
+    """(library, C function) of csrc/<name>.cu's `symbol`, its signature set
+    once: `argtypes` without the trailing stream, restype int."""
+    lib = library(name)
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    return lib, fn
+
+
+def call(entry_point, device, what, *args):
+    """Launch through `entry_point` (from `entry`) on `device`'s current
+    stream, raise on a CUDA error, and count the launch under `what`."""
+    lib, fn = entry_point
+    idx = device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, stream)
+    check(lib, err, what)
+    launch_counts[what] += 1

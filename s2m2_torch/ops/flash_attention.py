@@ -120,14 +120,10 @@ def _check(tensors):
         raise ValueError(f"unsupported device {q.device}")
 
 
-@functools.lru_cache(maxsize=None)
 def _entry():
     """The C entry point, its signature set once when the library loads."""
-    lib = _build.library("scanline_attention")
-    fn = lib.s2m2_scanline_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    return lib, fn
+    return _build.entry("scanline_attention", "s2m2_scanline_attention",
+                        (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8)
 
 
 def _launch(name, dirs, inputs, b, n, d):
@@ -146,20 +142,8 @@ def _launch(name, dirs, inputs, b, n, d):
     ptrs = [x for i, qkv in enumerate(dirs) for x in (*qkv, out.data_ptr() + i * step)]
     if len(dirs) == 1:
         ptrs += ptrs
-    lib, fn = _entry()
-    # the raw current stream through the binding inductor's generated code
-    # uses: a few microseconds less per call than torch.cuda.current_stream,
-    # and the device is switched only when it is not the current one
-    idx = q.device.index
-    args = (*ptrs, b, n, d, _DTYPES[q.dtype], p.dp, p.bq, p.smem, len(dirs),
-            torch._C._cuda_getCurrentRawStream(idx))
-    if idx == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(idx):
-            err = fn(*args)
-    _build.check(lib, err, name)
-    _build.launch_counts[name] += 1
+    _build.call(_entry(), q.device, name, *ptrs, b, n, d, _DTYPES[q.dtype], p.dp, p.bq,
+                p.smem, len(dirs))
     return out
 
 

@@ -16,6 +16,7 @@ proj; ffn w1, b1, w2, b2.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -124,29 +125,30 @@ def _check(rows, right0, weights, num_heads):
     return e
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(blocks, w, c, e, dtype):
+    """Global scratch bytes of a launch (the C side's own sizing)."""
+    size = _build.library("fused_basic_attn_block").s2m2_fused_block_scratch_bytes
+    size.restype = ctypes.c_size_t
+    size.argtypes = [ctypes.c_int] * 5
+    return size(blocks, w, c, e, dtype)
+
+
 def _launch(rows, right0, weights, num_heads, e):
     _, w, c = rows.shape
     dtype = _DTYPES[rows.dtype]
     sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
     blocks = min(right0, BLOCKS_PER_SM * sms)
-    lib = _build.library("fused_basic_attn_block")
-    size = lib.s2m2_fused_block_scratch_bytes
-    size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int] * 5
-    scratch = torch.empty(size(blocks, w, c, e, dtype), dtype=torch.uint8,
+    scratch = torch.empty(_scratch_bytes(blocks, w, c, e, dtype), dtype=torch.uint8,
                           device=rows.device)
     out = torch.empty_like(rows)
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(t.data_ptr() for t in weights))
-    fn = lib.s2m2_fused_basic_attn_block
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                    ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(rows.data_ptr(), out.data_ptr(), ptrs, scratch.data_ptr(), blocks,
-                 right0, right0, w, c, e, num_heads, dtype, stream)
-    _build.check(lib, err, "fused_basic_attn_block")
-    _build.launch_counts["fused_basic_attn_block"] += 1
+    entry = _build.entry("fused_basic_attn_block", "s2m2_fused_basic_attn_block",
+                         (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.c_void_p) + (ctypes.c_int,) * 8)
+    _build.call(entry, rows.device, "fused_basic_attn_block", rows.data_ptr(),
+                out.data_ptr(), ptrs, scratch.data_ptr(), blocks, right0, right0, w, c, e,
+                num_heads, dtype)
     return out
 
 

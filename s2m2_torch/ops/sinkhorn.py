@@ -83,15 +83,9 @@ def fused_correlation_ot(f0, f1, ot_iter=3, use_positivity=True):
     cv = torch.empty_like(prob)
     work = torch.empty((b * h, w + 1, w + 1), dtype=torch.float32,
                        device=f0.device)
-    lib = _build.library("sinkhorn_ot")
-    fn = lib.s2m2_fused_correlation_ot
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    with torch.cuda.device(f0.device):
-        stream = torch.cuda.current_stream(f0.device).cuda_stream
-        err = fn(f0.data_ptr(), f1.data_ptr(), cv.data_ptr(), prob.data_ptr(),
-                 work.data_ptr(), b * h, w, c, ot_iter, int(use_positivity),
-                 _DTYPES[f0.dtype], stream)
-    _build.check(lib, err, "fused_correlation_ot")
-    _build.launch_counts["fused_correlation_ot"] += 1
+    entry = _build.entry("sinkhorn_ot", "s2m2_fused_correlation_ot",
+                         (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6)
+    _build.call(entry, f0.device, "fused_correlation_ot", f0.data_ptr(), f1.data_ptr(),
+                cv.data_ptr(), prob.data_ptr(), work.data_ptr(), b * h, w, c, ot_iter,
+                int(use_positivity), _DTYPES[f0.dtype])
     return prob, cv

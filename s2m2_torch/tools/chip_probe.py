@@ -3,6 +3,7 @@
     python3 s2m2_torch/tools/chip_probe.py fill [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py dispatch [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py sweep [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py int8 [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--out FILE]
 
@@ -19,7 +20,20 @@ host's time per call; where the host's is the larger, the event time
 measures the dispatch, not the kernel.
 
 `dispatch`: the host time of each step of kernel A's wrapper at one small
-2D-block shape, beside the whole wrapper and SDPA's call.
+2D-block shape, beside the whole wrapper and SDPA's call; and of kernel
+E's two wrappers (`quantize_pack`, `int8_gemm`) on token rows, beside
+`torch._int_mm` on the same rows.
+
+`int8`: kernel E at every distinct call one XL int8 1216x1024 forward
+makes. The forward runs once with E's two wrappers wrapped so that the
+first call of each distinct argument signature is kept; each kept call is
+then replayed as the model made it and timed three ways: its device time
+under torch.profiler, CUDA events over one call (what chip_smoke.py's
+per-shape records took until they timed device work), and the host's
+time per call. Beside them, `torch._int_mm`'s device time on int8 rows of
+the GEMM's (M, K padded to 32, N), and the bound of each site's own work
+(`site_work`). It uses only E's public wrappers and `quant.last_log()`,
+so it also runs against an older checkout (`PYTHONPATH=<checkout>`).
 
 `sweep`: kernel A's device time in bf16 for a few instances per padded D
 (`SWEEP`) at the model's shapes, beside SDPA's and the compiled instance's.
@@ -39,6 +53,7 @@ import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -46,7 +61,7 @@ H, W = 1024, 1216
 
 
 def emit(obj, out):
-    line = json.dumps(obj)
+    line = json.dumps(obj, default=str)
     print(line, flush=True)
     if out:
         with open(out, "a") as f:
@@ -80,7 +95,7 @@ def _use_table(table, build_dir):
         _use_table.saved = (fa._INSTANCES, _build.BUILD_DIR)
     fa._INSTANCES, _build.BUILD_DIR = (table, build_dir) if table else _use_table.saved
     _build._libs.clear()
-    fa._entry.cache_clear()
+    _build.entry.cache_clear()
     fa.plan.cache_clear()
 
 
@@ -222,7 +237,10 @@ def cmd_sweep(args):
 
 def cmd_dispatch(args):
     """Host microseconds of each step of kernel A's wrapper at (8, 1216, 32)
-    bf16, beside the whole wrapper and SDPA's call."""
+    bf16, beside the whole wrapper and SDPA's call, and of kernel E's
+    wrappers (`_e_dispatch`)."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
     from s2m2_torch.ops import _build
@@ -233,6 +251,7 @@ def cmd_dispatch(args):
     q4, k4, v4 = (x.unsqueeze(1) for x in (q, k, v))
     out = fa.scanline_attention(q, k, v)
     lib, fn = fa._entry()
+    spare = lib["s2m2_error_string"]  # a second handle: its signature is not used
     p = fa.plan(q.dtype, 32)
     dev = q.device
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()] * 2
@@ -255,9 +274,168 @@ def cmd_dispatch(args):
         "current_device": torch.cuda.current_device,
         "ctypes launch": lambda: _build.check(lib, fn(*ptrs, 8, 1216, 32, 1, p.dp, p.bq,
                                                       p.smem, 1, stream), "probe"),
+        "ctypes argtypes (16)": lambda: setattr(spare, "argtypes", [ctypes.c_void_p] * 16),
+        **_e_dispatch(),
     }
     emit({"probe": "dispatch", "shape": [8, 1216, 32], "dtype": "bfloat16",
           "host_us": {name: host_us(f, n=1000) for name, f in steps.items()}}, args.out)
+
+
+def _e_dispatch():
+    """Host microseconds of kernel E's wrappers on (1216, 96) bf16 token
+    rows against a (64, 96) int8 weight, beside torch._int_mm on the rows."""
+    import torch
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1216, 96), generator=g, device="cuda").bfloat16()
+    w = torch.randint(-127, 128, (64, 96), generator=g, device="cuda", dtype=torch.int8)
+    s_w = torch.rand((64,), generator=g, device="cuda") * 1e-3
+    bias = torch.randn((64,), generator=g, device="cuda")
+    a = ig.quantize_pack(x, 20.0)
+    wt = w.t()
+    return {"e pack wrapper": lambda: ig.quantize_pack(x, 20.0),
+            "e gemm wrapper": lambda: ig.int8_gemm(a, w, s_w, 0.05, bias, torch.bfloat16),
+            "int_mm": lambda: torch._int_mm(a, wt)}
+
+
+def site_work(log):
+    """(bytes, operations) of each int8 site of a quantized forward, from
+    its `quant.last_log()` records: a pack record opens a site (a chunk of
+    an explicit im2col site counts as a site of its rows), the GEMM records
+    after it belong to it. Bytes: the activation once in its dtype (its
+    share of the rows for a chunk), each GEMM's int8 weight (N x K, K the
+    true reduction depth), its output once and its float32 scale and bias;
+    a site with no GEMM (an int8r residual store) writes its int8 rows.
+    Operations: 2 M N K per GEMM. This is the same whatever the kernels'
+    design."""
+    size = {"torch.bfloat16": 2, "torch.float32": 4}
+    sites = []
+    for r in log:
+        if r["kind"] == "pack":
+            numel = int(np.prod(r["in_shape"]))
+            share = 1.0
+            if r.get("layout", "im2col" if r["conv"] else "rows") == "im2col":
+                kh, kw, sh, sw, ph, pw = r["conv"]
+                b, _, h, w = r["in_shape"]
+                ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+                share = r["rows"] / (b * ho * wo)
+            elif not r["conv"] and r.get("layout", "rows") == "rows":
+                numel = r["rows"] * r["k"]
+            sites.append({"bytes": numel * size[r["dtype"]] * share,
+                          "rows_out": r["rows"] * r["kp"], "ops": 0, "gemms": 0})
+        elif r["kind"] == "gemm" and sites:
+            site = sites[-1]
+            site["bytes"] += (r["n"] * r["k"] + r["m"] * r["n"] * size[r["out"]]
+                              + 8 * r["n"])
+            site["ops"] += 2 * r["m"] * r["n"] * r["k"]
+            site["gemms"] += 1
+    return [(s["bytes"] + (0 if s["gemms"] else s["rows_out"]), s["ops"]) for s in sites]
+
+
+def _signature(args, kwargs):
+    """A hashable key of a call's arguments: tensors by shape, strides and
+    dtype, floats (the sites' scales) by type alone, everything else by
+    value; calls with one key do the same work."""
+    import torch
+
+    def key(v):
+        if isinstance(v, torch.Tensor):
+            return ("T", tuple(v.shape), v.stride(), str(v.dtype))
+        return "float" if isinstance(v, float) else repr(v)
+    return (tuple(key(a) for a in args), tuple((k, key(v)) for k, v in sorted(kwargs.items())))
+
+
+def cmd_int8(args):
+    """Kernel E at every distinct call of one XL int8 1216x1024 forward."""
+    import torch
+    from s2m2_torch.models import quant
+    from s2m2_torch.ops import _build
+    from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.runtime.engine import StereoEngine
+    _build.build_all()
+    rng = np.random.default_rng(0)
+    left, right = _pair(rng, 16)
+    eng = StereoEngine("XL", precision="int8", seed=0)
+    eng._auto_calibrate(left[None], right[None])
+    eng.forward_padded(left[None], right[None])  # warm
+    kept, counts = {}, {}
+    originals = {name: getattr(ig, name) for name in ("quantize_pack", "int8_gemm")}
+
+    def keeper(name):
+        def call(*a, **kw):
+            sig = (name, _signature(a, kw))
+            counts[sig] = counts.get(sig, 0) + 1
+            if sig not in kept:
+                kept[sig] = (a, kw)
+            return originals[name](*a, **kw)
+        return call
+
+    for name in originals:
+        setattr(ig, name, keeper(name))
+    try:
+        eng.forward_padded(left[None], right[None])
+    finally:
+        for name, fn in originals.items():
+            setattr(ig, name, fn)
+    log = quant.last_log()
+    work = site_work(log)
+    peak_bytes, peak_ops = 3.35e12, 1979e12
+    bound_ms = sum(1e3 * max(b / peak_bytes, o / peak_ops) for b, o in work)
+    recs = []
+    for (name, _), (a, kw) in kept.items():
+        fn = originals[name]
+        sig = (name, _signature(a, kw))
+        t = [x for x in (*a, *kw.values()) if isinstance(x, torch.Tensor)]
+        rec = {"kernel": name, "per_forward": counts[sig],
+               "shapes": [list(x.shape) for x in t], "dtypes": [str(x.dtype) for x in t],
+               "args": [v for v in a if not isinstance(v, torch.Tensor)],
+               "kwargs": {k: v for k, v in kw.items() if not isinstance(v, torch.Tensor)},
+               "device_us": device_us(lambda: fn(*a, **kw), n=10),  # noqa: B023
+               "event_ms_single": time_ms(lambda: fn(*a, **kw), n=10, reps=1),  # noqa: B023
+               "host_us": host_us(lambda: fn(*a, **kw), n=50)}  # noqa: B023
+        recs.append(rec)
+        emit({"probe": "int8_call", **rec}, args.out)
+    lib = {}
+    for r in log:
+        if r["kind"] != "gemm":
+            continue
+        key = (r["m"], (r["k"] + 31) // 32 * 32, r["n"])
+        if key in lib:
+            lib[key]["per_forward"] += 1
+            continue
+        m, kp, n = key
+        entry = {"m": m, "kp": kp, "n": n, "per_forward": 1, "device_us": None}
+        if m > 16 and n % 8 == 0:
+            a = torch.randint(-127, 128, (m, kp), device="cuda", dtype=torch.int8)
+            wt = torch.randint(-127, 128, (n, kp), device="cuda", dtype=torch.int8).t()
+            try:
+                torch._int_mm(a, wt)
+                entry["device_us"] = device_us(lambda: torch._int_mm(a, wt), n=10)  # noqa: B023
+            except RuntimeError:
+                pass
+            del a, wt
+        lib[key] = entry
+    tot = {}
+    for name in originals:
+        mine = [r for r in recs if r["kernel"] == name]
+        tot[name] = {k: sum(r[k] * r["per_forward"] for r in mine) / 1e3
+                     for k in ("device_us", "host_us")}
+        tot[name]["event_ms_single"] = sum(r["event_ms_single"] * r["per_forward"]
+                                           for r in mine)
+        tot[name]["launches"] = sum(r["per_forward"] for r in mine)
+        tot[name]["distinct_calls"] = len(mine)
+    took = [e for e in lib.values() if e["device_us"] is not None]
+    top = sorted(recs, key=lambda r: -r["per_forward"] * r["device_us"])[:10]
+    emit({"probe": "int8_forward", "package": __import__("s2m2_torch").__file__,
+          "sites": len(work), "site_bound_ms": bound_ms,
+          "site_bytes": sum(b for b, _ in work), "site_ops": sum(o for _, o in work),
+          "pack_ms": tot["quantize_pack"], "gemm_ms": tot["int8_gemm"],
+          "int_mm_device_ms": sum(e["device_us"] * e["per_forward"] for e in took) / 1e3,
+          "int_mm_launches": sum(e["per_forward"] for e in took),
+          "int_mm_shapes": [[e["m"], e["kp"], e["n"], e["per_forward"], e["device_us"]]
+                            for e in took],
+          "top10_by_device_time": [[r["kernel"], r["shapes"], r["kwargs"], r["per_forward"],
+                                    r["device_us"]] for r in top]}, args.out)
 
 
 def _pair(rng, disp):
@@ -290,9 +468,12 @@ def cmd_requests(args):
 
 
 def main():
+    # the checkout this file lies in, after PYTHONPATH (which may name an
+    # older checkout to measure instead)
+    sys.path.append(str(Path(__file__).resolve().parents[2]))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("fill", "dispatch", "sweep"):
+    for name in ("fill", "dispatch", "sweep", "int8"):
         sub.add_parser(name).add_argument("--out")
     req = sub.add_parser("requests")
     req.add_argument("--model", default="S")
@@ -310,6 +491,9 @@ def main():
     if args.cmd in ("fill", "dispatch", "sweep"):
         with torch.inference_mode():
             {"fill": cmd_fill, "dispatch": cmd_dispatch, "sweep": cmd_sweep}[args.cmd](args)
+    elif args.cmd == "int8":
+        with torch.inference_mode():
+            cmd_int8(args)
     else:
         cmd_requests(args)
     return 0

@@ -169,7 +169,11 @@ def _ulp_close(got, want):
 
 # (input shape, conv geometry or None, N, dtype): K not a multiple of 32,
 # N = 8 and 16, M not a multiple of the 128-row tile, 3x3 stride 2 with
-# padding, a (b, n, d) head view of a (B, heads, N, d) tensor, float32 out
+# padding, a (b, n, d) head view of a (B, heads, N, d) tensor, float32 out;
+# convs with C >= 32 also run the conv mode (implicit GEMM): C = 32, 48
+# (Cp 64) and 384, N = 8 and 200, 3x3 stride 1 and 2, 3x1, 1x1 (stride-1
+# convs with Cp % 128 == 0 load taps by TMA, the others gather them); the
+# last two are tall enough for the three-warpgroup instance (192-row tiles)
 INT8_CASES = [
     ((3, 100, 100), None, 8, torch.bfloat16),
     ((1000, 384), None, 16, torch.float32),
@@ -177,16 +181,29 @@ INT8_CASES = [
     ((1, 64, 20, 30), (3, 3, 1, 1, 1, 1), 200, torch.bfloat16),
     ((2, 16, 9, 7), (3, 1, 1, 1, 1, 0), 48, torch.float32),
     ("head", None, 96, torch.bfloat16),
+    ((2, 32, 19, 23), (3, 3, 1, 1, 1, 1), 8, torch.bfloat16),
+    ((1, 48, 17, 30), (3, 3, 2, 2, 1, 1), 200, torch.bfloat16),
+    ((1, 384, 24, 38), (3, 3, 1, 1, 1, 1), 200, torch.bfloat16),
+    ((1, 384, 13, 21), (3, 3, 1, 1, 1, 1), 8, torch.float32),
+    ((2, 48, 9, 13), (1, 1, 1, 1, 0, 0), 40, torch.bfloat16),
+    ((1, 64, 11, 9), (3, 1, 1, 1, 1, 0), 96, torch.bfloat16),
+    ((2, 128, 80, 330), (3, 3, 1, 1, 1, 1), 150, torch.bfloat16),
+    ((52800, 96), None, 150, torch.float32),
 ]
 
 
 @pytest.mark.parametrize("shape,conv,n,dtype", INT8_CASES,
                          ids=["k100-n8", "fp32-n16", "3x3s2", "3x3-nchw-chunks",
-                              "3x1-fp32", "head-view"])
+                              "3x1-fp32", "head-view", "conv-c32-n8", "conv-c48-s2-n200",
+                              "conv-c384-n200", "conv-c384-n8-fp32", "conv-1x1-c48",
+                              "conv-3x1-c64", "conv-tall-n150", "rows-3wg-n150"])
 def test_int8_kernels_match_plain_on_card(cuda, shape, conv, n, dtype):
     """quantize_pack against its plain version (bit-equal int8 rows); the
     int8 GEMM's int32 accumulators bit-equal to the exact plain product;
-    its dequantized output within one ulp of the output dtype."""
+    its dequantized output within one ulp of the output dtype. A conv with
+    C >= 32 also runs the conv mode: the NHWC pack bit-equal to its plain
+    version, the implicit GEMM's int32 accumulators bit-equal to the
+    explicit product, its NCHW output within one ulp."""
     from s2m2_torch.ops import int8_gemm as ig
     g = torch.Generator(device=cuda).manual_seed(0)
     if shape == "head":  # head 1 of (B, heads, N, d) = (6, 2, 70, 64)
@@ -216,6 +233,16 @@ def test_int8_kernels_match_plain_on_card(cuda, shape, conv, n, dtype):
             part = ig.quantize_pack(x, inv, conv=conv, rows=(m0, m1))
             ig.int8_gemm(part, w_q, s_w, s_x, bias, dtype, out=out, m_base=m0)
         _ulp_close(out.permute(0, 2, 3, 1).reshape(m, n), want)
+        if ig.implicit(x.shape[1]):
+            nhwc = ig.quantize_pack(x, inv, nhwc=True)
+            assert torch.equal(nhwc, ig.quantize_pack_plain(x, inv, nhwc=True))
+            kh, kw = conv[:2]
+            taps = w_q if kh * kw == 1 else ig.conv_weight_taps(w_q, x.shape[1], kh, kw)
+            assert torch.equal(ig.int8_gemm(nhwc, taps, out_dtype=torch.int32, conv=conv),
+                               acc)
+            out = torch.empty((b, n, ho, wo), dtype=dtype, device=cuda)
+            ig.int8_gemm(nhwc, taps, s_w, s_x, bias, dtype, out=out, conv=conv)
+            _ulp_close(out.permute(0, 2, 3, 1).reshape(m, n), want)
     torch.cuda.synchronize()
     assert _build.launch_counts["int8_quantize_pack"] > before["int8_quantize_pack"]
     assert _build.launch_counts["int8_gemm"] > before["int8_gemm"]
