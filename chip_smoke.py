@@ -23,8 +23,9 @@ non-zero:
    A/B record names the kernel instance that ran); D (the fused
    BasicAttnBlock) at the shapes one XL 1216x1024 forward with the fused
    route gives it, plus S's and L's widest, with seeded block weights from
-   the port's own init and, beside it, the port's unfused block on the same
-   rows;
+   the port's own init, each record naming the instance
+   `ops.fused_block.plan` chose, and, beside it, the port's unfused block on
+   the same rows (float32 bounds of A, B and D by split TF32);
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
    every tests/golden/s2m2_*.npz against the reference outputs, with the
    fused block off and then on (kernel D engaged);
@@ -76,10 +77,11 @@ N_XL_REQUESTS = 4
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3, bytes/s
 # non-tensor fp32; dense bf16; dense int8 (TOP/s)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
-# kernels A and B run float32 as split TF32: three TF32 products (495
+# kernels A, B and D run float32 as split TF32: three TF32 products (495
 # TFLOP/s dense) per float32 product, so a third of the TF32 rate
 SPLIT_TF32_FLOPS = 495e12 / 3
 ATTENTION = ("scanline_attention", "scanline_cross_attention")
+SPLIT_TF32 = (*ATTENTION, "fused_basic_attn_block")
 REPLACES = {
     "scanline_attention": "s2m2_tpu/ops/flash_attention.py:58",
     "scanline_cross_attention": "s2m2_tpu/ops/flash_attention.py:101",
@@ -192,11 +194,11 @@ def cost(name, shape, dtype_name):
 
 def bound(name, shape, dtype_name):
     """(bytes ms, operations ms): the bytes over the memory rate and the flops
-    over the peak rate for the dtype (split TF32's for A and B in float32);
-    the bound is the larger of the two."""
+    over the peak rate for the dtype (split TF32's for A, B and D in
+    float32); the bound is the larger of the two."""
     nbytes, flops = cost(name, shape, dtype_name)
     rate = PEAK_FLOPS[dtype_name]
-    if name in ATTENTION and dtype_name == "float32":
+    if name in SPLIT_TF32 and dtype_name == "float32":
         rate = SPLIT_TF32_FLOPS
     return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate
 
@@ -313,6 +315,7 @@ def phase_kernels(shapes, xl_attention):
                         rows[:n], rows[n:], wts, heads)
                     unfused = lambda: blk.forward_rows(rows)  # noqa: E731  (blk.fused is off)
                     lib = None
+                    instance = fb.plan(w, c, c, heads, dtype)._asdict()
                 elif name == "fused_correlation_ot":
                     f0, f1 = (layer_norm(torch.randn(shape, generator=g, device=dev))
                               .to(dtype) for _ in range(2))
@@ -363,9 +366,11 @@ def phase_kernels(shapes, xl_attention):
                        "bound_parts_ms": bound(name, shape, dn)}
                 if unfused is not None:  # the port's unfused block, A/B and cuBLAS
                     rec["unfused_ms"] = time_ms(unfused)
-                if instance is not None:
+                if instance is not None and name in ATTENTION:
                     rec.update(instance=instance, ms_single=time_ms(kern),
                                library_ms_single=time_ms(lib))
+                elif instance is not None:  # D: the plan's instance
+                    rec["instance"] = instance
                 emit({"phase": "kernels", **rec})
                 results[name][dn].append(rec)
     if failures:

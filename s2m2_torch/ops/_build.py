@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first use
 with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC` into `build/s2m2_torch/lib<name>.so` at the repository root, then
-loaded with ctypes. A library is rebuilt when its source, or a header the
-build generates for it from Python (`_generated_headers`), is newer. Nothing
+loaded with ctypes. A library is rebuilt when its source, a shared header
+of `csrc/` (`*.cuh`) that it includes, or a header the build generates for
+it from Python (`_generated_headers`), is newer. Nothing
 here runs at import time: the CPU tests import every module of the package
 on machines with no `nvcc` and no card.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -64,21 +66,28 @@ def _lib_path(name: str) -> Path:
 def _generated_headers(name: str) -> dict:
     """{file name: text} of the headers csrc/<name>.cu includes from the
     build directory: kernels A and B compile the instance table of
-    ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py, so
-    each table is kept in one place."""
+    ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py and
+    kernel D that of ops/fused_block.py, so each table is kept in one
+    place."""
     if name == "scanline_attention":
         from .flash_attention import instances_header
         return {"scanline_attention_instances.h": instances_header()}
     if name == "int8_gemm":
         from .int8_gemm import instances_header
         return {"int8_gemm_instances.h": instances_header()}
+    if name == "fused_basic_attn_block":
+        from .fused_block import instances_header
+        return {"fused_block_instances.h": instances_header()}
     return {}
 
 
 def _write_generated(name: str) -> float:
     """Write csrc/<name>.cu's generated headers into BUILD_DIR where their
-    text changed; returns the newest mtime of the source and its headers."""
-    newest = (CSRC / f"{name}.cu").stat().st_mtime
+    text changed; returns the newest mtime of the source, the shared
+    headers of csrc/ it includes and its generated headers."""
+    src = CSRC / f"{name}.cu"
+    shared = [CSRC / h for h in re.findall(r'#include "(\w+\.cuh)"', src.read_text())]
+    newest = max(p.stat().st_mtime for p in (src, *shared))
     for fname, text in _generated_headers(name).items():
         path = BUILD_DIR / fname
         if not path.exists() or path.read_text() != text:

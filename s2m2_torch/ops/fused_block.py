@@ -3,8 +3,10 @@
 One launch applies a whole BasicAttnBlock (cross attention, FFN, self
 attention, FFN, each pre-norm with a residual) to every epipolar row pair
 of the two views. On a CUDA tensor the wrapper launches the hand-written
-kernel of `csrc/fused_basic_attn_block.cu`; on a CPU tensor it runs the
-plain version beside it. Numerics follow the TPU kernel's body
+kernel of `csrc/fused_basic_attn_block.cu` (a persistent, warp-specialized
+wgmma kernel fed by TMA; float32 by split TF32), with the instance `plan`
+chooses from the table `_INSTANCES`; on a CPU tensor it runs the plain
+version beside it. Numerics follow the TPU kernel's body
 (`s2m2_tpu/ops/fused_block.py:_block_body`), with its rounding points in
 the compute dtype; GELU uses the exact erf.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +28,98 @@ from . import _build
 
 MAX_DIM = 512  # C and E the kernel takes (s2m2_tpu/models/mrt.py:25)
 N_WEIGHTS = 18
-BLOCKS_PER_SM = 2  # the kernel's __launch_bounds__ minimum
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM = 232448  # shared bytes a block may use on the H100
+STAGE_BYTES = 128 * 128  # a ring stage: 128 rows x 128 bytes (one weight tile)
+MAX_STAGES = 8
+STAGING = 8 * 16 * 144  # each consumer warp's 16 rows x (128 + 16) bytes
+# dtype -> (panel rows PR: the queries of an attention tile and the rows of
+# a phase-2 GEMM; warps NC that share a query group, each with 1/NC of the
+# columns of a pass; keys of a K/V tile; the compiled (columns per warp
+# DPW, passes over the keys) pairs, HDP = NC x DPW x passes): the one table
+# of kernel D's instances. The build compiles exactly these into
+# csrc/fused_basic_attn_block.cu's `dispatch` (`instances_header`). bf16
+# keeps DPW <= 128: a warp's output accumulators are DPW / 2 registers.
+_INSTANCES = {
+    torch.bfloat16: (64, 2, 32, ((32, 1), (64, 1), (96, 1), (96, 2), (128, 2))),
+    torch.float32: (32, 4, 32, ((16, 1), (32, 1), (48, 1), (96, 1), (128, 1))),
+}
+_PATHS = {torch.bfloat16: "wgmma", torch.float32: "split TF32"}
+
+
+class Plan(NamedTuple):
+    """Kernel D's instance for one block shape: the linears' path ("wgmma"
+    for bf16, "split TF32" mma.sync for float32), whether the weight tiles
+    come by TMA (else the producer warp gathers them with plain loads: a
+    row of C or E elements that is not a multiple of 16 bytes), the panel
+    rows PR, the padded head dim HDP = NC x DPW x passes, the columns per
+    warp DPW and the passes over the keys, the ring's stages and the
+    block's shared bytes."""
+    path: str
+    tma: bool
+    pr: int
+    hdp: int
+    dpw: int
+    passes: int
+    stages: int
+    smem: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(w, c, e, heads, dtype) -> Plan:
+    """The instance for (W, C, E, heads) rows of `dtype`: the smallest
+    compiled (DPW, passes) whose HDP = NC x DPW x passes covers the head dim
+    (the fewer passes on a tie), then as many ring
+    stages (at most 8) as the shared memory left by the two panels (PR rows
+    x the widest of C, E and HDP, in 128-byte chunks), the staging and the
+    barriers holds; at least one K tile's stages. Raises on what the kernel
+    does not take."""
+    if dtype not in _INSTANCES:
+        raise TypeError(f"dtype {dtype} not supported (float32 or bfloat16)")
+    if not (w >= 1 and supports(c, e) and c >= 1 and heads >= 1 and e % heads == 0):
+        raise ValueError(f"no kernel D instance for W={w}, C={c}, E={e}, heads={heads}")
+    pr, nc, bkv, inst = _INSTANCES[dtype]
+    esz = dtype.itemsize
+    kch = 128 // esz
+    hd = e // heads
+    hdp, passes, dpw = min((nc * d * n, n, d) for d, n in inst if nc * d * n >= hd)
+    half = pr * _cdiv(max(c, e, hdp), kch) * 128
+    fixed = 1024 + 2 * half + STAGING + (2 * MAX_STAGES + 2) * 8
+    stages = min(MAX_STAGES, (MAX_SMEM - fixed) // STAGE_BYTES)
+    kv_stages = _cdiv(_cdiv(hdp, kch), STAGE_BYTES // (bkv * 128))
+    if stages < kv_stages:
+        raise ValueError(f"kernel D: no room for a K tile at C={c}, E={e}, hd={hd}")
+    tma = (c * esz) % 16 == 0 and (e * esz) % 16 == 0
+    return Plan(_PATHS[dtype], tma, pr, hdp, dpw, passes, stages,
+                fixed + stages * STAGE_BYTES)
+
+
+def instances_header() -> str:
+    """The C header csrc/fused_basic_attn_block.cu includes from the build
+    directory: the geometry of `_INSTANCES` and `plan`, the X-macro list
+    S2M2_D_INSTANCES of (dtype code, DPW, passes) instances, and the wgmma wrappers
+    of the bf16 products' N tiles (a K tile's keys for the scores, 64 and
+    128 columns a warpgroup for the linears)."""
+    from .int8_gemm import _wgmma_struct
+    bf = _INSTANCES[torch.bfloat16]
+    f32 = _INSTANCES[torch.float32]
+    cases = [f"X({_DTYPES[dt]}, {d}, {n})" for dt, (_, _, _, inst) in _INSTANCES.items()
+             for d, n in inst]
+    lines = ["// Generated from _INSTANCES in s2m2_torch/ops/fused_block.py.",
+             "#pragma once", "#include <cuda_bf16.h>", "#include <stdint.h>",
+             f"#define S2M2_D_PR_BF16 {bf[0]}", f"#define S2M2_D_NC_BF16 {bf[1]}",
+             f"#define S2M2_D_BKV_BF16 {bf[2]}",
+             f"#define S2M2_D_PR_F32 {f32[0]}", f"#define S2M2_D_NC_F32 {f32[1]}",
+             f"#define S2M2_D_BKV_F32 {f32[2]}",
+             f"#define S2M2_D_STAGING {STAGING}", f"#define S2M2_D_MAX_STAGES {MAX_STAGES}",
+             "template <typename In, int BN> struct Wgmma;",
+             *(_wgmma_struct("bf16", n) for n in sorted({bf[2], 64, 128})),
+             f"#define S2M2_D_INSTANCES(X) {' '.join(cases)}"]
+    return "\n".join(lines) + "\n"
 
 
 def supports(c, e):
@@ -125,30 +218,23 @@ def _check(rows, right0, weights, num_heads):
     return e
 
 
-@functools.lru_cache(maxsize=None)
-def _scratch_bytes(blocks, w, c, e, dtype):
-    """Global scratch bytes of a launch (the C side's own sizing)."""
-    size = _build.library("fused_basic_attn_block").s2m2_fused_block_scratch_bytes
-    size.restype = ctypes.c_size_t
-    size.argtypes = [ctypes.c_int] * 5
-    return size(blocks, w, c, e, dtype)
-
-
 def _launch(rows, right0, weights, num_heads, e):
     _, w, c = rows.shape
-    dtype = _DTYPES[rows.dtype]
+    pl = plan(w, c, e, num_heads, rows.dtype)
     sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
-    blocks = min(right0, BLOCKS_PER_SM * sms)
-    scratch = torch.empty(_scratch_bytes(blocks, w, c, e, dtype), dtype=torch.uint8,
+    blocks = min(right0, sms)  # persistent: one block per SM, each walking pairs
+    # q, k, v of each block's pair in flight: (2W, heads, HDP) each
+    scratch = torch.empty(3 * blocks * 2 * w * num_heads * pl.hdp, dtype=rows.dtype,
                           device=rows.device)
     out = torch.empty_like(rows)
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*(t.data_ptr() for t in weights))
     entry = _build.entry("fused_basic_attn_block", "s2m2_fused_basic_attn_block",
                          (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-                          ctypes.c_void_p) + (ctypes.c_int,) * 8)
+                          ctypes.c_void_p) + (ctypes.c_int,) * 13)
     _build.call(entry, rows.device, "fused_basic_attn_block", rows.data_ptr(),
                 out.data_ptr(), ptrs, scratch.data_ptr(), blocks, right0, right0, w, c, e,
-                num_heads, dtype)
+                num_heads, _DTYPES[rows.dtype], pl.dpw, pl.passes, pl.stages, pl.smem,
+                int(not pl.tma))
     return out
 
 

@@ -27,7 +27,7 @@ from ..models import quant
 from ..models.init import init_params
 from ..models.s2m2 import S2M2
 from ..tools.convert import load_checkpoint, tolerant_merge
-from ..utils.image import image_crop, image_pad
+from ..utils.image import image_crop, image_pad, read_images
 
 # Subtrees whose weights stay float32 in a bf16 engine (fp32 islands, see
 # s2m2_tpu/runtime/engine.py): the three c->1 / c->2 out-conv heads always,
@@ -193,10 +193,27 @@ class StereoEngine:
 
     @staticmethod
     def _benchmark_calib_pair():
-        """(left, right) (1, H, W, 3) for calibrating synthetic-input
-        benchmarks: a deterministic synthetic scene (seed 7), as the JAX
-        engine uses when S2M2_CALIB_PAIR is unset; uniform noise has no
-        disparity structure and under-drives the matcher and refiners."""
+        """(left, right) float32 (1, H, W, 3) for calibrating synthetic-input
+        benchmarks, as the JAX engine chooses them: S2M2_CALIB_PAIR=
+        "left.png:right.png" names a real rectified pair (a missing file
+        raises, never a silent fallback); unset, a deterministic synthetic
+        scene (train.data._random_scene, seed 7), since uniform noise has no
+        disparity structure and under-drives the matcher and refiners. Either
+        way one warning line records the choice."""
+        import logging
+        import os
+        log = logging.getLogger("s2m2_torch.engine")
+        spec = os.environ.get("S2M2_CALIB_PAIR")
+        if spec:
+            lp, _, rp = spec.partition(":")
+            if not (os.path.exists(lp) and os.path.exists(rp)):
+                raise FileNotFoundError(f"S2M2_CALIB_PAIR points at missing files: {spec!r}")
+            left, right = read_images(lp, rp)
+            log.warning("int8 benchmark calibration pair: %s : %s", lp, rp)
+            return np.asarray(left, np.float32)[None], np.asarray(right, np.float32)[None]
+        log.warning("int8 benchmark calibration: built-in deterministic synthetic scene "
+                    "(train.data._random_scene, seed 7); set "
+                    "S2M2_CALIB_PAIR=left.png:right.png to calibrate on real data")
         from ..train.data import _random_scene
         left, right, _ = _random_scene(np.random.default_rng(7), 512, 608, max_disp=96)
         return left[None], right[None]

@@ -4,6 +4,8 @@
     python3 s2m2_torch/tools/chip_probe.py dispatch [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py sweep [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py int8 [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py dblock [--label NAME] [--trace] [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py drift [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--out FILE]
 
@@ -34,6 +36,25 @@ time per call. Beside them, `torch._int_mm`'s device time on int8 rows of
 the GEMM's (M, K padded to 32, N), and the bound of each site's own work
 (`site_work`). It uses only E's public wrappers and `quant.last_log()`,
 so it also runs against an older checkout (`PYTHONPATH=<checkout>`).
+
+`dblock`: kernel D at XL 1216x1024's two fused shapes, (256, 304, 384, 1)
+and (128, 152, 384, 2) as (pairs, W, C, heads), in bf16 and float32, with
+the port's seeded block weights: the kernel's time by CUDA events over 5
+back-to-back calls and by device time under torch.profiler, beside the
+port's unfused block on the same rows (A/B and cuBLAS); and the largest
+difference from the plain version. It uses only the public wrapper, so it
+also runs against an older checkout (`PYTHONPATH=<checkout>`). With
+`--trace`, kernel D is built with S2M2_D_TRACE into its own directory and,
+instead, each shape reports the share of the consumers' cycles in each
+stage of the kernel (waits, layer norms, epilogues, the attention's
+steps) and the producer's cycles spent waiting for a free stage.
+
+`drift`: the int8 engine's disparity drift (mean |disp - reference|, px)
+on the golden fixture tests/golden/s2m2_c32_ntr1_neg_up.npz, as chip_smoke.py
+phase 4 measures it, then again with one route at a time run by its plain
+PyTorch version on the card: A, B, C, E's GEMM, and the bf16 cuDNN
+convolutions computed in float32 (TF32 off) and rounded back; each route's
+swap covers calibration and forward alike.
 
 `sweep`: kernel A's device time in bf16 for a few instances per padded D
 (`SWEEP`) at the model's shapes, beside SDPA's and the compiled instance's.
@@ -467,14 +488,155 @@ def cmd_requests(args):
         torch.cuda.empty_cache()
 
 
+DBLOCK_SHAPES = ((256, 304, 384, 1), (128, 152, 384, 2))
+
+
+def cmd_dblock(args):
+    import torch
+    from s2m2_torch.ops import _build
+    if args.trace:  # a measurement build of kernel D, in its own directory
+        _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DS2M2_D_TRACE=1")
+        _build.BUILD_DIR = _build.BUILD_DIR.parent / "s2m2_torch_trace"
+    from s2m2_torch.models.attention import BasicAttnBlock
+    from s2m2_torch.models.init import _basic_attn_block, _Rng
+    from s2m2_torch.ops import fused_block as fb
+    from s2m2_torch.tools.convert import flatten, from_jax
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, w, c, heads in DBLOCK_SHAPES:
+        blk = BasicAttnBlock(c, heads)
+        blk.load_state_dict(from_jax(flatten(_basic_attn_block(_Rng(0), c, heads, 1))))
+        for dtype in (torch.bfloat16, torch.float32):
+            b = blk.to(dev, dtype)
+            wts = b.fused_weights()
+            rows = torch.randn((2 * n, w, c), generator=g, device=dev).to(dtype)
+            kern = lambda: fb.fused_basic_attn_block(rows, n, wts, heads)  # noqa: E731
+            if args.trace:
+                import ctypes
+                lib = _build.library("fused_basic_attn_block")
+                buf = (ctypes.c_ulonglong * (1024 * 16))()
+                kern()
+                torch.cuda.synchronize()
+                lib.s2m2_fused_block_trace(buf)  # zero the sums
+                kern()
+                torch.cuda.synchronize()
+                lib.s2m2_fused_block_trace(buf)
+                sums = np.array(buf, dtype=np.float64).reshape(1024, 16)
+                sums = sums[sums[:, 2] > 0]
+                names = ("consumer_wait_full", "producer_wait_empty", "total", "attention",
+                         "phase1_ln_qkv", "proj", "ln2", "ffn", "epilogues", "layer_norms",
+                         "q_loads", "attn_k_wait", "attn_scores", "attn_softmax",
+                         "attn_v_wait", "attn_pv")
+                emit({"probe": "dblock_trace", "shape": [n, w, c, heads],
+                      "dtype": str(dtype).split(".")[1], "blocks": len(sums),
+                      "share_of_total": {k: float(sums[:, i].sum() / sums[:, 2].sum())
+                                         for i, k in enumerate(names)},
+                      "total_mcycles_mean": float(sums[:, 2].mean() / 1e6)}, args.out)
+                continue
+            got = kern()
+            ref = torch.cat(fb.fused_basic_attn_block_plain(rows[:n], rows[n:], wts, heads))
+            plan = getattr(fb, "plan", None)
+            emit({"probe": "dblock", "label": args.label, "shape": [n, w, c, heads],
+                  "dtype": str(dtype).split(".")[1],
+                  "plan": plan(w, c, c, heads, dtype)._asdict() if plan else None,
+                  "max_abs_err": float((got.float() - ref.float()).abs().max()),
+                  "max_abs_ref": float(ref.float().abs().max()),
+                  "ms": time_ms(kern, n=10, warmup=2, reps=5),
+                  "device_ms": device_us(kern, n=5) / 1e3,
+                  "unfused_ms": time_ms(lambda: b.forward_rows(rows), n=10, warmup=2, reps=5),
+                  "device": torch.cuda.get_device_name(0)}, args.out)
+
+
+def _swapped(route):
+    """A context in which `route` runs its plain version on CUDA tensors."""
+    import contextlib
+    import torch
+    import torch.nn.functional as F
+    from s2m2_torch.models import matching
+    from s2m2_torch.ops import flash_attention as fa
+    from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.ops import sinkhorn
+
+    def packed_plain(q, k, v):
+        h = q.shape[0] // 2
+        return torch.cat(fa.scanline_cross_attention_plain(q[:h], k[:h], v[:h],
+                                                           q[h:], k[h:], v[h:]))
+
+    def gemm_plain(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
+                   out=None, m_base=0, conv=None):
+        if conv is not None and tuple(conv) == (1, 1, 1, 1, 0, 0):
+            a, conv = a.reshape(-1, a.shape[3]), None
+        y = ig.int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv)
+        if out is None:
+            return y
+        ig._write_nchw(out, y, m_base)
+        return out
+
+    conv2d = F.conv2d
+
+    def conv_f32(x, w, b=None, *args, **kwargs):
+        if x.dtype != torch.bfloat16:
+            return conv2d(x, w, b, *args, **kwargs)
+        return conv2d(x.float(), w.float(), None if b is None else b.float(), *args,
+                      **kwargs).to(torch.bfloat16)
+
+    table = {"A": [(fa, "scanline_attention", fa.scanline_attention_plain)],
+             "B": [(fa, "scanline_cross_attention_packed", packed_plain)],
+             "C": [(matching, "fused_correlation_ot", sinkhorn.fused_correlation_ot_plain)],
+             "E_gemm": [(ig, "int8_gemm", gemm_plain)],
+             "cudnn_conv_f32": [(F, "conv2d", conv_f32)]}
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in table.get(route, [])]
+        for mod, name, fn in table.get(route, []):
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+    return ctx()
+
+
+def cmd_drift(args):
+    import torch
+    from s2m2_torch.config import ModelConfig
+    from s2m2_torch.runtime.engine import StereoEngine
+    path = Path(__file__).resolve().parents[2] / "tests" / "golden" / "s2m2_c32_ntr1_neg_up.npz"
+    with np.load(path) as z:
+        meta = list(z["__meta"])
+        img0 = np.transpose(z["__img0"], (0, 2, 3, 1))
+        img1 = np.transpose(z["__img1"], (0, 2, 3, 1))
+        ref = np.transpose(z["__disp"], (0, 2, 3, 1))
+    cfg = ModelConfig(feature_channels=int(meta[0]), num_transformer=int(meta[1]),
+                      refine_iter=int(meta[2]), use_positivity=bool(meta[3]),
+                      output_upsample=bool(meta[4]))
+    for precision in ("int8", "int8r"):
+        for route in ("none", "A", "B", "C", "E_gemm", "cudnn_conv_f32"):
+            with _swapped(route):
+                eng = StereoEngine(cfg, checkpoint=str(path), precision=precision,
+                                   device="cuda")
+                eng.calibrate(img0, img1)
+                disp = eng.forward_padded(img0, img1)[0].cpu().numpy()
+            emit({"probe": "drift", "fixture": path.name, "precision": precision,
+                  "plain_route": route, "epe_px": float(np.abs(disp - ref).mean()),
+                  "device": torch.cuda.get_device_name(0)}, args.out)
+
+
 def main():
     # the checkout this file lies in, after PYTHONPATH (which may name an
     # older checkout to measure instead)
     sys.path.append(str(Path(__file__).resolve().parents[2]))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("fill", "dispatch", "sweep", "int8"):
+    for name in ("fill", "dispatch", "sweep", "int8", "drift"):
         sub.add_parser(name).add_argument("--out")
+    dbl = sub.add_parser("dblock")
+    dbl.add_argument("--label", default="")
+    dbl.add_argument("--trace", action="store_true",
+                     help="kernel D built with S2M2_D_TRACE: the cycles of its stages")
+    dbl.add_argument("--out")
     req = sub.add_parser("requests")
     req.add_argument("--model", default="S")
     req.add_argument("--precision", default="bf16,int8a,int8r")
@@ -494,6 +656,11 @@ def main():
     elif args.cmd == "int8":
         with torch.inference_mode():
             cmd_int8(args)
+    elif args.cmd == "drift":
+        cmd_drift(args)
+    elif args.cmd == "dblock":
+        with torch.inference_mode():
+            cmd_dblock(args)
     else:
         cmd_requests(args)
     return 0

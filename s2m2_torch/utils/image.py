@@ -1,4 +1,4 @@
-"""Image padding and cropping (reference: src/s2m2/core/utils/image_utils.py).
+"""Image I/O, padding and cropping (reference: src/s2m2/core/utils/image_utils.py).
 
 Host-side numpy, run once per frame before the model.
 """
@@ -7,6 +7,22 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+
+def read_images(left_path, right_path):
+    """Load a stereo pair as RGB uint8 arrays (H, W, 3): cv2 where it is
+    installed, else PIL (as s2m2_tpu/utils/image.py:read_images)."""
+    try:
+        import cv2
+        left = cv2.cvtColor(cv2.imread(str(left_path), cv2.IMREAD_COLOR),
+                            cv2.COLOR_BGR2RGB)
+        right = cv2.cvtColor(cv2.imread(str(right_path), cv2.IMREAD_COLOR),
+                             cv2.COLOR_BGR2RGB)
+        return left, right
+    except ImportError:
+        from PIL import Image
+        return (np.asarray(Image.open(left_path).convert("RGB")),
+                np.asarray(Image.open(right_path).convert("RGB")))
 
 
 def _adaptive_avg_pool(x, out_h, out_w):

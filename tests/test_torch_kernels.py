@@ -112,9 +112,13 @@ def test_ot_kernel_matches_plain_on_card(cuda, dtype, use_positivity):
 @pytest.mark.parametrize("pairs,w,c,heads,e", [(3, 24, 16, 4, 1), (2, 33, 48, 4, 1),
                                                (2, 40, 48, 2, 1), (2, 70, 128, 1, 1),
                                                (2, 50, 384, 2, 1), (2, 65, 384, 1, 1),
-                                               (3, 20, 8, 1, 2), (2, 9, 512, 4, 1)])
+                                               (3, 20, 8, 1, 2), (2, 9, 512, 4, 1),
+                                               (2, 304, 384, 1, 1), (2, 152, 384, 2, 1),
+                                               (2, 17, 20, 5, 1), (2, 24, 12, 3, 2)])
 def test_fused_block_kernel_matches_plain_on_card(cuda, pairs, w, c, heads, e, dtype):
-    """Kernel D at head dims 4 to 384 and odd W: float32 within
+    """Kernel D at head dims 4 to 384, odd W, XL's two shapes (1/4 and 1/8
+    scale) at 2 pairs, and bf16 rows of 40 and 24 bytes (weight tiles
+    gathered without TMA, rows read element by element): float32 within
     1e-4 * max(1, max|ref|), bfloat16 within 2e-2 * max|ref|."""
     from s2m2_torch.models.attention import BasicAttnBlock
     from s2m2_torch.models.init import _basic_attn_block, _Rng
