@@ -8,19 +8,22 @@ PyTorch built for CUDA. It imports nothing of JAX or of `s2m2_tpu`. Phases,
 each printing one JSON line; any failure raises and the script exits
 non-zero:
 
-1. device: the card's name and power limit (nvidia-smi) and the versions;
+1. device: the card's name, power limit and maximum SM clock (nvidia-smi)
+   and the versions;
 2. build: compiles `s2m2_torch/csrc/*.cu` (one nvcc each, in parallel) into
    `build/s2m2_torch/`;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, in float32 and bfloat16 (B through the packed wrapper the model
-   calls), with times (CUDA events, median of 20; for A and B each sample
-   spans 10 back-to-back calls, and `ms_single` / `library_ms_single` keep
-   the one-call times earlier runs reported) of the kernel, the plain
+   calls), with times (CUDA events, median of 20; for A, B and C each
+   sample spans 10 back-to-back calls, and `ms_single` /
+   `library_ms_single` keep the one-call times) of the kernel, the plain
    version and, for attention,
    F.scaled_dot_product_attention as a yardstick the port never calls: A, B
-   and C at the shapes one S 1216x1024 forward gives them, A and B also at
-   every shape of an XL 1216x1024 forward with the fused block off (each
-   A/B record names the kernel instance that ran); D (the fused
+   and C at the shapes one S 1216x1024 forward gives them, A, B and C also
+   at every shape of an XL 1216x1024 forward with the fused block off (each
+   A/B record names the kernel instance that ran, each C record the
+   `ops.sinkhorn.plan` route; C's bound adds its exponentials at the SMs'
+   16 a clock and maximum clock to bytes and flops); D (the fused
    BasicAttnBlock) at the shapes one XL 1216x1024 forward with the fused
    route gives it, plus S's and L's widest, with seeded block weights from
    the port's own init, each record naming the instance
@@ -81,7 +84,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # TFLOP/s dense) per float32 product, so a third of the TF32 rate
 SPLIT_TF32_FLOPS = 495e12 / 3
 ATTENTION = ("scanline_attention", "scanline_cross_attention")
+# kernel C's float32 correlation is sequential FFMA (the plain version's
+# sum, which split TF32 cannot match at C = 384), so it is not in SPLIT_TF32
 SPLIT_TF32 = (*ATTENTION, "fused_basic_attn_block")
+# kernels timed over 10 back-to-back calls (one call kept as ms_single) and
+# also at every shape of an XL forward with the fused block off
+XL_TIMED = (*ATTENTION, "fused_correlation_ot")
+# the exponential units: 16 results a clock on each of the H100's 132 SMs,
+# at the SM clock nvidia-smi reports as its maximum (phase 1 reads it)
+EXPS_PER_CLOCK = 16 * 132
+SM_CLOCK_MHZ = None
+OT_ITER = 3  # Sinkhorn iterations of the model's matcher (and of phase 3's calls)
 REPLACES = {
     "scanline_attention": "s2m2_tpu/ops/flash_attention.py:58",
     "scanline_cross_attention": "s2m2_tpu/ops/flash_attention.py:101",
@@ -172,6 +185,19 @@ def time_ms(fn, n=20, warmup=3, reps=1):
     return float(np.median(times))
 
 
+def ot_exps(shape, positivity=True, ot_iter=OT_ITER):
+    """Exponentials kernel C's function needs: 2 ot_iter log-sum-exp sweeps
+    over the entries of the (W+1)^2 row that are not masked (j <= i, the
+    dustbin row and column; all of them without positivity) and the final
+    pass over the unmasked W x W entries, for every row."""
+    b, h, w, _ = shape
+    if positivity:
+        sweep, final = w * (w + 1) // 2 + 2 * w + 1, w * (w + 1) // 2
+    else:
+        sweep, final = (w + 1) ** 2, w * w
+    return b * h * (2 * ot_iter * sweep + final)
+
+
 def cost(name, shape, dtype_name):
     """(bytes, flops) the function must move and do: each input read once,
     each output written once; the matrix products' flops."""
@@ -193,25 +219,35 @@ def cost(name, shape, dtype_name):
 
 
 def bound(name, shape, dtype_name):
-    """(bytes ms, operations ms): the bytes over the memory rate and the flops
-    over the peak rate for the dtype (split TF32's for A, B and D in
-    float32); the bound is the larger of the two."""
+    """(bytes ms, operations ms[, exps ms]): the bytes over the memory rate,
+    the flops over the peak rate for the dtype (split TF32's for A, B and D
+    in float32) and, for kernel C, its exponentials over the SMs'
+    exponential rate at their maximum clock; the bound is the largest."""
     nbytes, flops = cost(name, shape, dtype_name)
     rate = PEAK_FLOPS[dtype_name]
     if name in SPLIT_TF32 and dtype_name == "float32":
         rate = SPLIT_TF32_FLOPS
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate
+    parts = (1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate)
+    if name == "fused_correlation_ot":
+        parts += (1e3 * ot_exps(shape) / (EXPS_PER_CLOCK * SM_CLOCK_MHZ * 1e6),)
+    return parts
 
 
 def phase_device():
     import torch
+    global SM_CLOCK_MHZ
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     smi = smi.splitlines()[torch.cuda.current_device()]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    SM_CLOCK_MHZ = float(clock.splitlines()[torch.cuda.current_device()])
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "sm_clock_max_mhz": SM_CLOCK_MHZ})
     return smi
 
 
@@ -274,10 +310,10 @@ def packed_cross_plain(q, k, v):
     return torch.cat(fa.scanline_cross_attention_plain(q[:h], k[:h], v[:h], q[h:], k[h:], v[h:]))
 
 
-def phase_kernels(shapes, xl_attention):
+def phase_kernels(shapes, xl_shapes):
     """`shapes`: per kernel, the Counter of shapes (and launches per forward)
-    of the S forward (D's: of the XL fused forward); `xl_attention`: A's and
-    B's of the XL unfused forward, timed as well and tagged "XL"."""
+    of the S forward (D's: of the XL fused forward); `xl_shapes`: A's, B's
+    and C's of the XL unfused forward, timed as well and tagged "XL"."""
     import torch
     import torch.nn.functional as F
     from s2m2_torch.models.layers import layer_norm
@@ -294,7 +330,7 @@ def phase_kernels(shapes, xl_attention):
     for name, counter in shapes.items():
         todo = [(s, n, "S") for s, n in counter.items()] + \
             [(s, 0, "S") for s in extra.get(name, [])] + \
-            [(s, n, "XL") for s, n in xl_attention.get(name, {}).items()]
+            [(s, n, "XL") for s, n in xl_shapes.get(name, {}).items()]
         if name == "fused_basic_attn_block":
             todo = [(s, n, "XL" if n else "S/L") for s, n, _ in todo]
         for shape, per_forward, model in todo:
@@ -325,6 +361,7 @@ def phase_kernels(shapes, xl_attention):
                     kern = lambda: sinkhorn.fused_correlation_ot(f0, f1)  # noqa: E731
                     plain = lambda: sinkhorn.fused_correlation_ot_plain(f0, f1)  # noqa: E731
                     lib = None
+                    instance = sinkhorn.plan(shape[2], shape[3], dtype, True)._asdict()
                 else:
                     # B as the model calls it: the packed (x | y) batch, (2B, N, D)
                     b = shape[0]
@@ -357,7 +394,7 @@ def phase_kernels(shapes, xl_attention):
                                  "ok": ok})
                     if not ok:
                         failures.append((name, shape, dn, kind, err, limit))
-                reps = 10 if name in ATTENTION else 1
+                reps = 10 if name in XL_TIMED else 1
                 rec = {"kernel": name, "model": model, "shape": list(shape), "dtype": dn,
                        "per_forward": per_forward, "checks": errs,
                        "ms": time_ms(kern, reps=reps), "plain_ms": time_ms(plain, reps=reps),
@@ -369,6 +406,8 @@ def phase_kernels(shapes, xl_attention):
                 if instance is not None and name in ATTENTION:
                     rec.update(instance=instance, ms_single=time_ms(kern),
                                library_ms_single=time_ms(lib))
+                elif name == "fused_correlation_ot":  # C: its plan, one call
+                    rec.update(plan=instance, ms_single=time_ms(kern))
                 elif instance is not None:  # D: the plan's instance
                     rec["instance"] = instance
                 emit({"phase": "kernels", **rec})
@@ -900,14 +939,20 @@ def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
     by_bytes = sum(r["bound_parts_ms"][0] * r["per_forward"] for r in recs)
-    by_ops = sum(r["bound_parts_ms"][1] * r["per_forward"] for r in recs)
+    # operations: flops or, for kernel C, exponentials, whichever is larger
+    by_ops = sum(max(r["bound_parts_ms"][1:]) * r["per_forward"] for r in recs)
     sums = {"ms": tot("ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None if recs[0]["library_ms"] is None else tot("library_ms"),
             "launches_per_forward": sum(r["per_forward"] for r in recs)}
+    parts = zip(*[r["bound_parts_ms"] for r in recs])
+    sums["bound_parts_ms"] = dict(zip(("bytes", "operations", "exps"), (
+        sum(p * r["per_forward"] for p, r in zip(part, recs)) for part in parts)))
     for key in ("unfused_ms", "ms_single", "library_ms_single"):
         if key in recs[0]:
             sums[key] = tot(key)
+    if "plan" in recs[0]:
+        sums["plan"] = recs[0]["plan"]
     return sums
 
 
@@ -916,8 +961,8 @@ def kernels_line(results, launches):
     over the launches of one bf16 1216x1024 forward (each shape's time times
     its launches per forward): an S forward for A, B and C, an XL forward
     with the fused block on for D (which adds unfused_ms, the port's unfused
-    blocks on the same rows); `fp32` holds the same sums in float32. A and B
-    add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
+    blocks on the same rows); `fp32` holds the same sums in float32. A, B and
+    C add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
     block off. max_abs_err is the largest over all of the kernel's
     comparisons; launches counts every main-path request of phases 5-7."""
     out = []
@@ -932,11 +977,11 @@ def kernels_line(results, launches):
             xl = [r for r in recs if r["model"] == "XL"]
             if dn == "bfloat16":
                 entry.update(sums)
-                if name in ATTENTION:
+                if name in XL_TIMED:
                     entry["xl"] = _forward_sums(xl)
             else:
                 entry["fp32"] = sums
-                if name in ATTENTION:
+                if name in XL_TIMED:
                     entry["xl_fp32"] = _forward_sums(xl)
         out.append(entry)
     return out
@@ -977,7 +1022,7 @@ def main():
         xl_unfused = main_path_shapes(get_config("XL"), H, W, fused_block=False)
         results = phase_kernels({**shapes, "fused_basic_attn_block":
                                  xl_blocks["fused_basic_attn_block"]},
-                                {k: xl_unfused[k] for k in ATTENTION})
+                                {k: xl_unfused[k] for k in XL_TIMED})
         phase_probe()
     phase_golden(fused_block=False)
     phase_golden(fused_block=True)

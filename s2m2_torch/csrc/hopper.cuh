@@ -2,9 +2,9 @@
 // waits and arrivals, TMA tile loads, cp.async copies, the wgmma fence /
 // commit / wait instructions and the shared-memory matrix descriptor of a
 // 128-byte-swizzled K-major tile, and libcuda's cuTensorMapEncodeTiled
-// reached through the runtime. Included by int8_gemm.cu (kernel E) and
-// fused_basic_attn_block.cu (kernel D); each includes it inside its own
-// translation unit, so nothing here is exported.
+// reached through the runtime. Included by int8_gemm.cu (kernel E),
+// fused_basic_attn_block.cu (kernel D) and sinkhorn_ot.cu (kernel C); each
+// includes it inside its own translation unit, so nothing here is exported.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked
@@ -48,6 +48,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,

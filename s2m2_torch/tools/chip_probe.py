@@ -6,6 +6,7 @@
     python3 s2m2_torch/tools/chip_probe.py int8 [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py dblock [--label NAME] [--trace] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py drift [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py ot [--label NAME] [--trace] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--out FILE]
 
@@ -55,6 +56,22 @@ phase 4 measures it, then again with one route at a time run by its plain
 PyTorch version on the card: A, B, C, E's GEMM, and the bf16 cuDNN
 convolutions computed in float32 (TF32 off) and rounded back; each route's
 swap covers calibration and forward alike.
+
+`ot`: kernel C at S's and XL's 1216x1024 matcher shapes, (1, 256, 304,
+128) and (1, 256, 304, 384), and at W = 608, (1, 128, 608, 128), in bf16
+and float32 with positivity on: CUDA events over 10 back-to-back calls
+and over one call, the device time under torch.profiler, the plain
+version's event and device time, the largest difference from it (prob and
+cv), and the device memory one call adds beyond its inputs (outputs plus
+any workspace). It uses only the public wrapper, so it also runs against
+an older checkout (`PYTHONPATH=<checkout>`); the plan, and how many of its
+clusters fit on the card at once, are reported where the checkout has
+them. With `--trace`, kernel C is built with S2M2_C_TRACE into its own
+directory and each shape instead reports the cycles thread 0 of a CTA
+spends in each stage of the resident route (the correlation's main loop
+and epilogue, the column sweeps' items, local merge, cluster barrier and
+merge, the row sweeps, the final pass, the exit wait), summed over the
+correlation's passes and the Sinkhorn iterations.
 
 `sweep`: kernel A's device time in bf16 for a few instances per padded D
 (`SWEEP`) at the model's shapes, beside SDPA's and the compiled instance's.
@@ -547,6 +564,86 @@ def cmd_dblock(args):
                   "device": torch.cuda.get_device_name(0)}, args.out)
 
 
+OT_SHAPES = ((1, 256, 304, 128), (1, 256, 304, 384), (1, 128, 608, 128))
+
+
+OT_STAGES = ("correlation_epilogue", "column_items", "column_local_merge", "cluster_barrier",
+             "column_cluster_merge", "row_sweep", "final_pass", "exit_wait",
+             "correlation_main_loop")
+
+
+def _ot_clusters(plan):
+    """How many clusters of `plan` fit on the card at once, or None."""
+    import ctypes
+    from s2m2_torch.ops import _build
+    lib = _build.library("sinkhorn_ot")
+    if plan is None or plan.route != "resident" or not hasattr(lib, "s2m2_ot_max_clusters"):
+        return None
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.s2m2_ot_max_clusters(1, plan.cluster, plan.smem, ctypes.byref(out)),
+                 "s2m2_ot_max_clusters")
+    return out.value
+
+
+def cmd_ot(args):
+    import ctypes
+    import torch
+    from s2m2_torch.ops import _build
+    if args.trace:  # a measurement build of kernel C, in its own directory
+        _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DS2M2_C_TRACE=1")
+        _build.BUILD_DIR = _build.BUILD_DIR.parent / "s2m2_torch_trace"
+    from s2m2_torch.models.layers import layer_norm
+    from s2m2_torch.ops import sinkhorn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    plan = getattr(sinkhorn, "plan", None)
+    for shape in OT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            f0, f1 = (layer_norm(torch.randn(shape, generator=g, device=dev)).to(dtype)
+                      for _ in range(2))
+            kern = lambda: sinkhorn.fused_correlation_ot(f0, f1)  # noqa: E731
+            plain = lambda: sinkhorn.fused_correlation_ot_plain(f0, f1)  # noqa: E731
+            p = plan(shape[2], shape[3], dtype, True) if plan else None
+            if args.trace:
+                lib = _build.library("sinkhorn_ot")
+                buf = (ctypes.c_ulonglong * 16)()
+                kern()
+                torch.cuda.synchronize()
+                _build.check(lib, lib.s2m2_ot_trace(buf), "s2m2_ot_trace")  # zero the sums
+                kern()
+                torch.cuda.synchronize()
+                _build.check(lib, lib.s2m2_ot_trace(buf), "s2m2_ot_trace")
+                ctas = max(1, buf[15])
+                total = sum(buf[:len(OT_STAGES)])
+                emit({"probe": "ot_trace", "shape": list(shape),
+                      "dtype": str(dtype).split(".")[1], "plan": p._asdict(), "ctas": buf[15],
+                      "cycles_per_cta": {k: buf[i] / ctas for i, k in enumerate(OT_STAGES)},
+                      "share": {k: buf[i] / max(1, total) for i, k in enumerate(OT_STAGES)},
+                      "device": torch.cuda.get_device_name(0)}, args.out)
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = kern()
+            torch.cuda.synchronize()
+            added = torch.cuda.max_memory_allocated() - base
+            ref = plain()
+            emit({"probe": "ot", "label": args.label, "shape": list(shape),
+                  "dtype": str(dtype).split(".")[1],
+                  "plan": p._asdict() if p else None, "max_active_clusters": _ot_clusters(p),
+                  "max_abs_err": {k: float((a.float() - b.float()).abs().max())
+                                  for k, a, b in (("prob", got[0], ref[0]),
+                                                  ("cv", got[1], ref[1]))},
+                  "max_abs_ref": {"prob": float(ref[0].float().abs().max()),
+                                  "cv": float(ref[1].float().abs().max())},
+                  "ms": time_ms(kern), "ms_single": time_ms(kern, reps=1),
+                  "device_ms": device_us(kern, n=10) / 1e3,
+                  "plain_ms": time_ms(plain, n=5, warmup=1, reps=1),
+                  "plain_device_ms": device_us(plain, n=3) / 1e3,
+                  "call_bytes": added, "device": torch.cuda.get_device_name(0)}, args.out)
+            del got, ref
+
+
 def _swapped(route):
     """A context in which `route` runs its plain version on CUDA tensors."""
     import contextlib
@@ -632,6 +729,11 @@ def main():
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name in ("fill", "dispatch", "sweep", "int8", "drift"):
         sub.add_parser(name).add_argument("--out")
+    ot = sub.add_parser("ot")
+    ot.add_argument("--label", default="")
+    ot.add_argument("--trace", action="store_true",
+                    help="kernel C built with S2M2_C_TRACE: the cycles of its stages")
+    ot.add_argument("--out")
     dbl = sub.add_parser("dblock")
     dbl.add_argument("--label", default="")
     dbl.add_argument("--trace", action="store_true",
@@ -661,6 +763,9 @@ def main():
     elif args.cmd == "dblock":
         with torch.inference_mode():
             cmd_dblock(args)
+    elif args.cmd == "ot":
+        with torch.inference_mode():
+            cmd_ot(args)
     else:
         cmd_requests(args)
     return 0

@@ -91,12 +91,26 @@ def test_packed_cross_attention_kernel_on_card(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_positivity", [True, False])
-def test_ot_kernel_matches_plain_on_card(cuda, dtype, use_positivity):
+@pytest.mark.parametrize("shape", [(1, 6, 40, 24), (1, 256, 304, 128), (1, 256, 304, 384),
+                                   (2, 3, 33, 24), (1, 5, 65, 40), (1, 4, 305, 64),
+                                   (1, 3, 48, 20), (1, 3, 608, 32), (1, 2, 700, 24)])
+def test_ot_kernel_matches_plain_on_card(cuda, shape, dtype, use_positivity):
+    """Kernel C on both routes of `sinkhorn.plan`: S's and XL's 1216x1024
+    shapes (clusters of 2 CTAs per row in bf16, 4 in float32, operands by
+    TMA), ragged W (33, 65: one CTA; 305: slabs of unequal rows, operands
+    by cp.async), ragged C (24, 40; 20, whose bf16 rows are not 16-byte
+    multiples and are staged element by element), W = 608 (a cluster of 8,
+    several correlation passes) and W = 700 (the streamed route); one
+    launch per call. float32 prob within 1e-6 + 1e-4 |ref| and cv within
+    1e-3; bfloat16 within 2e-2 * max|ref|."""
     from s2m2_torch.models.layers import layer_norm
     g = torch.Generator(device=cuda).manual_seed(0)
-    f0, f1 = (layer_norm(torch.randn((1, 6, 40, 24), generator=g, device=cuda)).to(dtype)
+    f0, f1 = (layer_norm(torch.randn(shape, generator=g, device=cuda)).to(dtype)
               for _ in range(2))
+    before = _build.launch_counts["fused_correlation_ot"]
     prob, cv = sinkhorn.fused_correlation_ot(f0, f1, use_positivity=use_positivity)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_correlation_ot"] == before + 1
     prob_w, cv_w = sinkhorn.fused_correlation_ot_plain(f0, f1,
                                                        use_positivity=use_positivity)
     if dtype == torch.float32:
