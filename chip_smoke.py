@@ -48,7 +48,25 @@ non-zero:
    forward; then S in int8a and int8r, 2 requests each. Each run checks A,
    B and C against the counts of phase 5/6, D at 0 (the fused route is
    off), every quantized GEMM of the calibration pass served by kernel E,
-   and E's launches against the forward's own record of its sites.
+   and E's launches against the forward's own record of its sites;
+8. calibration path: online self-calibration as a user runs it, with no
+   OpenCV: StereoEngine("S", precision="bf16") on phase 5's first pair as a
+   raw uint8 pair under a synthetic 1216x1024 sensor calibration (5
+   distortion coefficients a camera, principal points apart, a 120 mm
+   baseline and a stereo rotation of a few mrad). First the native host
+   library (built in phase 2 with g++) against its numpy versions: the
+   remap of both images with the port's numpy maps within 1 grey level,
+   the blurred pad of a 1200x1000 frame within 1e-3. Then
+   `cem_calibration` at its defaults (seed 0) and
+   `gradient_descent_calibration` with one iteration, each with its
+   candidates, the median host ms per candidate to build the maps and to
+   remap, the median ms of the engine call, the wall seconds and the
+   initial and final confidence; no candidate may score 0.0 (with a valid
+   calibration that would be a swallowed error) and A, B and C must have
+   launched the S bf16 forward's counts once per candidate. Then
+   run(n_repeat=4) against run(n_repeat=1) on the rectified pair, one line
+   of `python -m s2m2_torch.tools.bench --model S --precision bf16 --iters
+   5`, and a check that cv2 was never imported.
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -254,7 +272,9 @@ def phase_device():
 def phase_build():
     """Build every kernel; fail if an instance of A/B spills registers."""
     import re
+    from s2m2_torch import native
     from s2m2_torch.ops import _build
+    native_seconds = native.build()  # the host library (g++), before nvcc starts
     seconds = _build.build_all()
     ptxas = {}
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
@@ -266,11 +286,13 @@ def phase_build():
     gemm_notes = [ln.strip()[:160] for ln in
                   (_build.BUILD_DIR / "int8_gemm.log").read_text().splitlines()
                   if re.search(r"[1-9]\d* bytes spill|C7519|C7508|C7510|wgmma|setmaxnreg", ln)]
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
+    emit({"phase": "build", "seconds": seconds, "native_seconds": native_seconds,
+          "ptxas": ptxas,
           "scanline_attention_spill_lines": spills, "int8_gemm_notes": gemm_notes[:40],
           "int8_gemm_note_count": len(gemm_notes)})
     if spills:
         raise AssertionError(f"scanline_attention instances spill: {spills}")
+    return native_seconds
 
 
 def _max_err_ok(got, ref, dtype_name, kind):
@@ -935,6 +957,141 @@ def phase_int8_sites(log):
     return entries
 
 
+def synthetic_calibration():
+    """A sensor calibration at 1216x1024 (W x H): fx = fy ~ 1000, principal
+    points near the centre and apart, 5 distortion coefficients a camera,
+    a -120 mm baseline and a stereo rotation of a few mrad."""
+    from s2m2_torch.utils.calib import euler_to_rotation_matrix
+    return {
+        "left": {"fx": 1000.0, "fy": 1000.0, "cx": 611.3, "cy": 509.2,
+                 "distortion": np.array([-0.05, 0.012, 0.0004, -0.0003, 0.001])},
+        "right": {"fx": 1001.5, "fy": 1001.5, "cx": 604.8, "cy": 514.6,
+                  "distortion": np.array([-0.048, 0.011, -0.0002, 0.0005, 0.0])},
+        "stereo_extrinsic": {"rotation": euler_to_rotation_matrix(0.002, -0.003, 0.0015),
+                             "translation": np.array([-120.0, 0.3, -0.5])},
+    }
+
+
+def phase_native(raw, calib, native_seconds):
+    """The native host library against its numpy versions at the path's
+    sizes: both raw images remapped with the port's maps (<= 1 grey level),
+    the blurred pad of a 1200x1000 frame (<= 1e-3); host ms of each."""
+    from s2m2_torch import native
+    from s2m2_torch.utils.calib import compute_stereo_rectification
+    from s2m2_torch.utils.image import image_pad_plain, remap_plain
+    t0 = time.perf_counter()
+    rect = compute_stereo_rectification(calib, (W, H))
+    maps_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"phase": "native", "build_seconds": native_seconds, "maps_ms": maps_ms}
+    worst = 0
+    for img, side in zip(raw, ("left", "right")):
+        mx, my = rect[f"{side}MapX"], rect[f"{side}MapY"]
+        t0 = time.perf_counter()
+        got = native.remap_bilinear(img, mx, my)
+        t1 = time.perf_counter()
+        want = remap_plain(img, mx, my)
+        t2 = time.perf_counter()
+        worst = max(worst, int(np.abs(got.astype(int) - want.astype(int)).max()))
+        rec[f"remap_{side}_ms"], rec[f"remap_{side}_plain_ms"] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    frame = np.random.default_rng(1).uniform(0, 255, (1, 1000, 1200, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    padded = native.image_pad(frame[0])
+    t1 = time.perf_counter()
+    want = image_pad_plain(frame)[0]
+    t2 = time.perf_counter()
+    pad_err = float(np.abs(padded - want).max())
+    ok = worst <= 1 and pad_err <= 1e-3 and padded.shape == (1024, 1216, 3)
+    emit({**rec, "remap_max_diff": worst, "remap_bound": 1, "pad_max_abs_err": pad_err,
+          "pad_bound": 1e-3, "pad_ms": (t1 - t0) * 1e3, "pad_plain_ms": (t2 - t1) * 1e3,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"native library disagrees with its numpy versions: remap "
+                             f"{worst} grey levels, pad {pad_err}")
+
+
+def _search(label, fn, per_forward):
+    """Run one calibration search, fn(candidate_log), with the launch counts
+    set to 0 just before; check and report it. Returns its counts."""
+    from s2m2_torch.ops import _build
+    log = []
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn(log)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    n = len(log)
+    zeros = [r for r in log if r["score"] == 0.0]
+    med = {k: float(np.median([r[k] for r in log])) for k in ("maps_ms", "remap_ms", "score_ms")}
+    emit({"phase": "calibration", "search": label, "candidates": n, "wall_s": wall,
+          "median_maps_ms": med["maps_ms"], "median_remap_ms": med["remap_ms"],
+          "median_request_ms": med["score_ms"],
+          "host_share": (med["maps_ms"] + med["remap_ms"]) / sum(med.values()),
+          "initial_confidence": res["initial_confidence"],
+          "final_confidence": res["final_confidence"],
+          "deltas": [res["roll_delta"], res["pitch_delta"], res["yaw_delta"]],
+          "zero_scores": len(zeros), "launches": counts})
+    if n == 0 or zeros:
+        raise AssertionError(f"{label}: {len(zeros)} of {n} candidates scored 0.0: "
+                             f"{[r.get('error') for r in zeros][:3]}")
+    for name, k in per_forward.items():
+        if counts[name] != k * n:
+            raise AssertionError(f"{label}: {name} launched {counts[name]} times, "
+                                 f"expected {k} x {n} candidates")
+    return counts
+
+
+def phase_calibration(shapes, pair, native_seconds):
+    """Online self-calibration on the S bf16 engine (phase 8 above).
+    Returns the launches of its runs."""
+    import torch
+    from s2m2_torch.calibration.cem import cem_calibration
+    from s2m2_torch.calibration.grad_descent import gradient_descent_calibration
+    from s2m2_torch.ops import _build
+    from s2m2_torch.runtime.engine import StereoEngine
+    from s2m2_torch.tools import bench
+    from s2m2_torch.utils.calib import compute_stereo_rectification
+    from s2m2_torch.utils.image import rectify_images
+
+    per_forward = {k: sum(v.values()) for k, v in shapes.items()}
+    raw = [np.rint(img).astype(np.uint8) for img in pair]
+    calib = synthetic_calibration()
+    phase_native(raw, calib, native_seconds)
+    eng = StereoEngine("S", precision="bf16", seed=0)
+    launches = Counter()
+    launches.update(_search("cem", lambda log: cem_calibration(
+        eng, *raw, calib, seed=0, verbose=False, candidate_log=log), per_forward))
+    launches.update(_search("gradient_descent", lambda log: gradient_descent_calibration(
+        eng, *raw, calib, verbose=False, max_iterations=1, candidate_log=log), per_forward))
+
+    # n_repeat: one forward, then one warm and 4 timed, on the rectified pair
+    left_r, right_r = rectify_images(*raw, compute_stereo_rectification(calib, (W, H)))
+    _build.reset_launch_counts()
+    one = eng.run(left_r, right_r, n_repeat=1)
+    four = eng.run(left_r, right_r, n_repeat=4)
+    counts = dict(_build.launch_counts)
+    launches.update(counts)
+    diff = float(np.abs(one[0] - four[0]).mean())
+    ok = diff < 0.01 and all(counts[k] == 6 * n for k, n in per_forward.items())
+    emit({"phase": "n_repeat", "ms_n_repeat_1": one[4], "ms_n_repeat_4": four[4],
+          "mean_abs_disp_diff_px": diff, "bound_px": 0.01, "launches": counts, "ok": ok})
+    if not ok:
+        raise AssertionError(f"run(n_repeat=4) differs from run(n_repeat=1) by {diff} px "
+                             f"or launched {counts}")
+    del eng
+    torch.cuda.empty_cache()
+
+    _build.reset_launch_counts()  # the bench: 2 warm and 5 timed forwards
+    bench.main(["--model", "S", "--precision", "bf16", "--iters", "5"])
+    counts = dict(_build.launch_counts)
+    if any(counts[k] != 7 * n for k, n in per_forward.items()):
+        raise AssertionError(f"bench launched {counts}, expected 7 forwards")
+    launches.update(counts)
+    torch.cuda.empty_cache()
+    if any(m == "cv2" or m.startswith("cv2.") for m in sys.modules):
+        raise AssertionError("the calibration path imported cv2")
+    return launches
+
+
 def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
@@ -964,7 +1121,7 @@ def kernels_line(results, launches):
     blocks on the same rows); `fp32` holds the same sums in float32. A, B and
     C add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
     block off. max_abs_err is the largest over all of the kernel's
-    comparisons; launches counts every main-path request of phases 5-7."""
+    comparisons; launches counts every main-path request of phases 5-8."""
     out = []
     for name, by_dtype in results.items():
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1015,7 +1172,7 @@ def main():
         (OUT_DIR / "chip_smoke.jsonl").write_text("")
     t0 = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    native_seconds = phase_build()
     shapes = main_path_shapes(get_config("S"), H, W)
     xl_blocks = main_path_shapes(get_config("XL"), H, W, fused_block=True)
     with torch.inference_mode():
@@ -1036,6 +1193,7 @@ def main():
     launches.update(int8_launches)
     with torch.inference_mode():
         e_entries = phase_int8_sites(xl_int8_log)
+    launches.update(phase_calibration(shapes, pairs[0], native_seconds))
     line = kernels_line(results, launches)
     for name, entry in e_entries.items():
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],

@@ -9,6 +9,7 @@
     python3 s2m2_torch/tools/chip_probe.py ot [--label NAME] [--trace] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py calib [--n 20] [--out FILE]
 
 `fill`: kernel A in bf16 at head dim 32 with N = 1216 (S's 2D blocks) and at
 (B, 304, 128) (S's 1x scale), over a range of sequence counts B, with
@@ -82,6 +83,19 @@ request (which calibrates an int8 engine), printing every request's ms.
 It uses only the engine's public API, so it also runs against an older
 checkout of the package:
 `PYTHONPATH=<checkout> python3 s2m2_torch/tools/chip_probe.py requests ...`.
+
+`calib`: where the time of an online-calibration candidate goes, on
+chip_smoke.py phase 8's engine (S bf16, seed 0), raw pair (phase 5's first,
+uint8) and synthetic 1216x1024 sensor calibration. Four runs of `--n`
+engine calls each, in turns: (a) requests back to back on the rectified
+pair; (b) candidates as `evaluate_sample` runs them (numpy maps, native
+remap, request) for seeded deltas of 2 mrad; (c) requests each after
+building the maps of a candidate but not remapping; (d) requests each
+after remapping the pair with fixed maps. Each reports the median host ms
+of the maps, the remap, the engine call (`score_ms`) and the forward alone
+(`run()`'s own ms), so (c) and (d) say whether the host's numpy work slows
+the forward that follows it. Then one candidate under torch.profiler: the
+device's busy ms beside the candidate's wall ms.
 
 Every result is one JSON line on stdout (and appended to `--out`).
 """
@@ -505,6 +519,74 @@ def cmd_requests(args):
         torch.cuda.empty_cache()
 
 
+def cmd_calib(args):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _stereo_pair, synthetic_calibration
+    from s2m2_torch.calibration import base
+    from s2m2_torch.runtime.engine import StereoEngine
+    from s2m2_torch.utils.calib import compute_stereo_rectification, create_delta_rotation
+    from s2m2_torch.utils.image import rectify_images
+    raw = [np.rint(i).astype(np.uint8) for i in _stereo_pair(np.random.default_rng(0), H, W, 16)]
+    calib = synthetic_calibration()
+    rect = compute_stereo_rectification(calib, (W, H))
+    pair = rectify_images(*raw, rect)
+    eng = StereoEngine("S", precision="bf16", seed=0)
+    deltas = np.random.default_rng(1).normal(0, 0.002, (args.n, 3))
+
+    def request(p):
+        t0 = time.perf_counter()
+        fwd_ms = eng.run(*p)[4]
+        return (time.perf_counter() - t0) * 1e3, fwd_ms
+
+    def maps(d):
+        t0 = time.perf_counter()
+        r = compute_stereo_rectification(calib, (W, H), create_delta_rotation(*d))
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def remap(r):
+        t0 = time.perf_counter()
+        p = rectify_images(*raw, r)
+        return p, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        request(pair)
+    runs = {"back_to_back": [], "candidates": [], "maps_then_request": [],
+            "remap_then_request": []}
+    for i in range(args.n):
+        score_ms, fwd = request(pair)
+        runs["back_to_back"].append({"score_ms": score_ms, "forward_ms": fwd})
+        r, maps_ms = maps(deltas[i])
+        p, remap_ms = remap(r)
+        score_ms, fwd = request(p)
+        runs["candidates"].append({"maps_ms": maps_ms, "remap_ms": remap_ms,
+                                   "score_ms": score_ms, "forward_ms": fwd})
+        _, maps_ms = maps(deltas[i])
+        score_ms, fwd = request(pair)
+        runs["maps_then_request"].append({"maps_ms": maps_ms, "score_ms": score_ms,
+                                          "forward_ms": fwd})
+        _, remap_ms = remap(rect)
+        score_ms, fwd = request(pair)
+        runs["remap_then_request"].append({"remap_ms": remap_ms, "score_ms": score_ms,
+                                           "forward_ms": fwd})
+    for name, recs in runs.items():
+        emit({"probe": "calib", "run": name, "n": args.n,
+              **{f"median_{k}": float(np.median([r[k] for r in recs])) for k in recs[0]}},
+             args.out)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        base.evaluate_sample(eng, *raw, calib, *deltas[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    emit({"probe": "calib", "run": "profiled_candidate", "wall_ms": wall_ms,
+          "device_busy_ms": busy if busy > 0 else "not measured",
+          "idle_share": 1 - busy / wall_ms if busy > 0 else "not measured"}, args.out)
+
+
 DBLOCK_SHAPES = ((256, 304, 384, 1), (128, 152, 384, 2))
 
 
@@ -745,6 +827,9 @@ def main():
     req.add_argument("--n", type=int, default=16)
     req.add_argument("--label", default="")
     req.add_argument("--out")
+    cal = sub.add_parser("calib")
+    cal.add_argument("--n", type=int, default=20)
+    cal.add_argument("--out")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -766,6 +851,8 @@ def main():
     elif args.cmd == "ot":
         with torch.inference_mode():
             cmd_ot(args)
+    elif args.cmd == "calib":
+        cmd_calib(args)
     else:
         cmd_requests(args)
     return 0

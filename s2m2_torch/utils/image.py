@@ -1,6 +1,10 @@
-"""Image I/O, padding and cropping (reference: src/s2m2/core/utils/image_utils.py).
+"""Image I/O, padding, cropping and rectification remap (reference:
+src/s2m2/core/utils/image_utils.py).
 
-Host-side numpy, run once per frame before the model.
+Host-side, run once per frame before the model. `image_pad` and the uint8
+remap of `rectify_images` go through the native library (`s2m2_torch.native`,
+built with g++ at first use); `image_pad_plain` and `remap_plain` are their
+numpy versions, which the tests hold the library against.
 """
 from __future__ import annotations
 
@@ -62,7 +66,20 @@ def _bilinear_resize(x, out_h, out_w):
 def image_pad(img, factor=32):
     """Pad (B, H, W, C) to a multiple of `factor`, filling the border with a
     blurred (downsample -> bilinear upsample) copy of the image instead of
-    zeros, to avoid border artifacts (reference: image_utils.py:27-71)."""
+    zeros, to avoid border artifacts (reference: image_utils.py:27-71). Runs
+    the native library frame by frame (`image_pad_plain` is the numpy
+    version)."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[1:3]
+    if h % factor == 0 and w % factor == 0:
+        return img
+    from .. import native
+    return np.stack([native.image_pad(frame, factor) for frame in img])
+
+
+def image_pad_plain(img, factor=32):
+    """numpy version of `image_pad` (the JAX package's body, without its
+    native fast path)."""
     img = np.asarray(img, np.float32)
     b, h, w, c = img.shape
     h_new = math.ceil(h / factor) * factor
@@ -87,3 +104,58 @@ def image_crop(img, shape):
     hs = (h - h_new) // 2
     ws = (w - w_new) // 2
     return img[..., hs:hs + h_new, ws:ws + w_new, :]
+
+
+def remap_plain(img, map_x, map_y):
+    """cv2.remap(img, map_x, map_y, INTER_LINEAR, borderMode=BORDER_CONSTANT)
+    in numpy: out[y, x] = img at (map_y[y, x], map_x[y, x]) by bilinear
+    interpolation on the float32 coordinates, each of the four taps outside
+    the image counting as 0. Float images keep the unrounded value (as
+    cv2.remap does on float32); uint8 rounds to nearest, as the native remap
+    does. img: (h, w[, c]); maps: (h_out, w_out) float32."""
+    img = np.asarray(img)
+    gray = img.ndim == 2
+    if gray:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    ftype = np.float64 if img.dtype == np.float64 else np.float32
+    # coordinates beyond one pixel outside have every tap outside: clamping
+    # them keeps the integer casts defined and the result 0
+    mx = np.clip(np.nan_to_num(np.asarray(map_x, np.float32), nan=-2.0), -2, w + 1)
+    my = np.clip(np.nan_to_num(np.asarray(map_y, np.float32), nan=-2.0), -2, h + 1)
+    x0f, y0f = np.floor(mx), np.floor(my)
+    ax = (mx - x0f).astype(ftype)[..., None]
+    ay = (my - y0f).astype(ftype)[..., None]
+    x0, y0 = x0f.astype(np.int64), y0f.astype(np.int64)
+    src = img.astype(ftype, copy=False)
+    acc = np.zeros((*mx.shape, img.shape[2]), ftype)
+    for dy in (0, 1):
+        yy = y0 + dy
+        wy = ay if dy else 1 - ay
+        for dx in (0, 1):
+            xx = x0 + dx
+            wx = ax if dx else 1 - ax
+            valid = ((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w))[..., None]
+            taps = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+            acc += np.where(valid, wy * wx * taps, 0)
+    if img.dtype == np.uint8:
+        acc = np.clip(np.floor(acc + 0.5), 0, 255)
+    out = acc.astype(img.dtype)
+    return out[..., 0] if gray else out
+
+
+def rectify_images(left_img, right_img, rectification_data):
+    """Stereo rectification remap of a raw pair with the maps of
+    `utils.calib.compute_stereo_rectification` (reference:
+    image_utils.py:108-136, which calls cv2.remap): uint8 pairs go through
+    the native library, other dtypes through `remap_plain`. No OpenCV."""
+    out = []
+    for img, side in ((left_img, "left"), (right_img, "right")):
+        mx, my = rectification_data[f"{side}MapX"], rectification_data[f"{side}MapY"]
+        img = np.asarray(img)
+        if img.dtype == np.uint8:
+            from .. import native
+            out.append(native.remap_bilinear(img, mx, my))
+        else:
+            out.append(remap_plain(img, mx, my))
+    return tuple(out)

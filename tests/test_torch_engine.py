@@ -99,12 +99,59 @@ def test_image_pad_matches_jax_package():
 
 def test_package_imports_no_jax():
     code = ("import sys, s2m2_torch.runtime.engine, s2m2_torch.ops.flash_attention, "
-            "s2m2_torch.ops.sinkhorn, s2m2_torch.tools.convert; "
+            "s2m2_torch.ops.sinkhorn, s2m2_torch.tools.convert, s2m2_torch.native, "
+            "s2m2_torch.utils.calib, s2m2_torch.utils.metrics, "
+            "s2m2_torch.utils.pointcloud, s2m2_torch.utils.vis, "
+            "s2m2_torch.calibration.base, s2m2_torch.calibration.cem, "
+            "s2m2_torch.calibration.grad_descent, s2m2_torch.calibration.keypoint, "
+            "s2m2_torch.calibration.visualize, s2m2_torch.tools.bench, "
+            "s2m2_torch.tools.eval_dataset; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'s2m2_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_calibration_path_imports_no_cv2():
+    """The calibration search, rectification and engine need no OpenCV, even
+    where it is installed: importing them and rectifying a uint8 pair leaves
+    cv2 out of sys.modules."""
+    code = ("import sys, numpy as np, s2m2_torch.calibration.cem, "
+            "s2m2_torch.calibration.grad_descent, s2m2_torch.utils.calib as C, "
+            "s2m2_torch.runtime.engine; "
+            "from s2m2_torch.utils.image import rectify_images; "
+            "d = {'fx': 80.0, 'fy': 80.0, 'cx': 40.0, 'cy': 30.0, "
+            "'distortion': np.array([-0.05, 0.01, 0, 0, 0])}; "
+            "data = {'left': d, 'right': d, 'stereo_extrinsic': {'rotation': np.eye(3), "
+            "'translation': np.array([-120.0, 0, 0])}}; "
+            "img = np.zeros((60, 80, 3), np.uint8); "
+            "rectify_images(img, img, C.compute_stereo_rectification(data, (80, 60))); "
+            "bad = [m for m in sys.modules if m == 'cv2' or m.startswith('cv2.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_run_n_repeat(precision):
+    """run(n_repeat=4): one untimed forward, then 4 on the same padded pair;
+    the same maps as run(n_repeat=1) within the bf16 drift bound
+    (tests/test_model_parity.py:115: mean |disp diff| < 0.01 px) and a
+    positive mean time; n_repeat < 1 raises."""
+    rng = np.random.default_rng(4)
+    left = rng.uniform(0, 255, (70, 90, 3)).astype(np.float32)
+    right = np.roll(left, -4, axis=1)
+    eng = StereoEngine(SMALL, precision=precision, device="cpu")
+    one = eng.run(left, right, n_repeat=1)
+    four = eng.run(left, right, n_repeat=4)
+    for a, b in zip(one[:3], four[:3]):
+        assert a.shape == b.shape == (70, 90)
+        assert float(np.abs(a - b).mean()) < 0.01
+    assert abs(one[3] - four[3]) < 1e-3 and four[4] > 0
+    with pytest.raises(ValueError):
+        eng.run(left, right, n_repeat=0)
 
 
 def test_sources_never_import_jax():
