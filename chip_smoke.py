@@ -66,7 +66,27 @@ non-zero:
    launched the S bf16 forward's counts once per candidate. Then
    run(n_repeat=4) against run(n_repeat=1) on the rectified pair, one line
    of `python -m s2m2_torch.tools.bench --model S --precision bf16 --iters
-   5`, and a check that cv2 was never imported.
+   5`, and a check that cv2 was never imported;
+9. train: the port's training on the card. (1) A, B and C with grad
+   enabled at the shapes an S step at batch 2 x 384x512 gives them, in
+   float32 and bf16: one launch each (their autograd Functions) and
+   gradients equal to autograd through the plain versions; D and E raise
+   under grad. (2) One fp32 step of CH32/NTR1/refine_iter=2 at 96x128,
+   batch 2, TF32 off, on the card and on the CPU from the same seeded
+   weights and batch: loss, every gradient leaf, no silent gradient stop,
+   parameters after the step. (3) `train()` on S at full width, bf16 over
+   fp32 masters, batch 2 at 384x512 (the JAX loader's default crop),
+   synthetic scenes (max_disp 64) through `augment_batches`, 20 steps at lr
+   2e-4 with 2 warmup steps: ms per step by CUDA events, peak memory, the
+   losses, A/B/C launched 20/10/1 per step and D, E never; then one
+   profiled step, device ms by kernel family for the forward and the
+   backward, and the backward's ms in A's, B's and C's plain recompute.
+   (4) XL, the same at batch 1, 3 steps. (5) The checkpoint written after
+   S's last step restored into a fresh model and optimizer: one more step
+   from both, deterministic algorithms on, parameters bitwise equal. (6)
+   `tools/calibrate.py` for S int8 writes the scale cache; an engine that
+   loads it gives the scales and, on phase 5's first pair, the disparity
+   of an engine that calibrated itself.
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -135,6 +155,11 @@ GOLDEN_INT8 = (("s2m2_c32_ntr1.npz", "int8", 0.01), ("s2m2_c32_ntr1_neg_up.npz",
                ("s2m2_c32_ntr1.npz", "int8r", 0.015),
                ("s2m2_c32_ntr1_neg_up.npz", "int8r", 0.09))
 OUT_DIR = None  # --out DIR: also keep the run's records there
+# phase 9: S training at the JAX loader's default crop
+# (s2m2_tpu/train/data.py:64, directory_batches), batch 2, 20 steps; XL 3
+TRAIN_H, TRAIN_W, TRAIN_BATCH = 384, 512, 2
+TRAIN_STEPS, XL_TRAIN_STEPS = 20, 3
+TRAIN_LR, TRAIN_WARMUP = 2e-4, 2
 # launches per XL 1216x1024 forward, by route of the scanline blocks: D
 # takes the 1x and 2x blocks (C = 384); the 1/16-scale blocks (C = 768) and
 # the 2D blocks stay on A and B; C is the matcher
@@ -323,15 +348,6 @@ def seeded_block(c, heads, seed=0):
     return blk
 
 
-def packed_cross_plain(q, k, v):
-    """Kernel B's plain version on the packed (x | y) batch: (2B, N, D) in,
-    attn(qx, ky, vy) then attn(qy, kx, vx) out."""
-    import torch
-    from s2m2_torch.ops import flash_attention as fa
-    h = q.shape[0] // 2
-    return torch.cat(fa.scanline_cross_attention_plain(q[:h], k[:h], v[:h], q[h:], k[h:], v[h:]))
-
-
 def phase_kernels(shapes, xl_shapes):
     """`shapes`: per kernel, the Counter of shapes (and launches per forward)
     of the S forward (D's: of the XL fused forward); `xl_shapes`: A's, B's
@@ -389,7 +405,8 @@ def phase_kernels(shapes, xl_shapes):
                     b = shape[0]
                     if name == "scanline_cross_attention":
                         b *= 2
-                        fn, plain_fn = fa.scanline_cross_attention_packed, packed_cross_plain
+                        fn, plain_fn = (fa.scanline_cross_attention_packed,
+                                      fa.packed_cross_attention_plain)
                     else:
                         fn, plain_fn = fa.scanline_attention, fa.scanline_attention_plain
                     xs = [torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype)
@@ -1092,6 +1109,389 @@ def phase_calibration(shapes, pair, native_seconds):
     return launches
 
 
+def _train_shapes(cfg, h, w, batch):
+    """main_path_shapes at `batch` pairs: every first dim scales with it."""
+    return {name: Counter({(s[0] * batch, *s[1:]): n for s, n in counter.items()})
+            for name, counter in main_path_shapes(cfg, h, w).items()}
+
+
+def _vjp(fn, inputs, cots):
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs, leaves, cots)
+
+
+def phase_grad_wiring():
+    """9.1: A, B and C with grad enabled at the shapes an S training step at
+    TRAIN_BATCH x 384x512 gives them, float32 and bf16: one launch each
+    through the autograd Function, and gradients equal to autograd through
+    the plain version on the same inputs and cotangents (the backward
+    recomputes it: float rounding, expected 0); D and E raise under grad."""
+    import torch
+    from s2m2_torch.config import get_config
+    from s2m2_torch.models.attention import BasicAttnBlock
+    from s2m2_torch.models.layers import layer_norm
+    from s2m2_torch.ops import _build
+    from s2m2_torch.ops import flash_attention as fa
+    from s2m2_torch.ops import fused_block as fb
+    from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.ops import sinkhorn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    fns = {"scanline_attention": (fa.scanline_attention, fa.scanline_attention_plain),
+           "scanline_cross_attention": (fa.scanline_cross_attention_packed,
+                                        fa.packed_cross_attention_plain),
+           "fused_correlation_ot": (sinkhorn.fused_correlation_ot,
+                                    sinkhorn.fused_correlation_ot_plain)}
+    shapes = _train_shapes(get_config("S"), TRAIN_H, TRAIN_W, TRAIN_BATCH)
+    failures = []
+    for name, (fn, plain) in fns.items():
+        for shape in shapes[name]:
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                if name == "fused_correlation_ot":
+                    xs = [layer_norm(torch.randn(shape, generator=g, device=dev)).to(dtype)
+                          for _ in range(2)]
+                    out_shape = (*shape[:3], shape[2])
+                    cots = tuple(torch.randn(out_shape, generator=g, device=dev).to(dtype)
+                                 for _ in range(2))
+                else:  # B as the model calls it, on the packed (x | y) batch
+                    b = shape[0] * (2 if name == "scanline_cross_attention" else 1)
+                    xs = [torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype)
+                          for _ in range(3)]
+                    cots = (torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype),)
+                _build.reset_launch_counts()
+                outs, grads = _vjp(fn, xs, cots)
+                torch.cuda.synchronize()
+                launched = dict(_build.launch_counts)
+                want_outs, want = _vjp(plain, xs, cots)
+                grad_err = max(float((a.float() - w.float()).abs().max()) for a, w in
+                               zip(grads, want))
+                scale = max(float(w.float().abs().max()) for w in want)
+                kinds = ("prob", "cv") if len(outs) == 2 else ("attn",)
+                fwd = [_max_err_ok(a, w, dn, kind)
+                       for a, w, kind in zip(outs, want_outs, kinds)]
+                ok = (launched[name] == 1 and sum(launched.values()) == 1
+                      and grad_err <= 1e-6 * scale and all(f[2] for f in fwd)
+                      and outs[0].grad_fn is not None)
+                emit({"phase": "grad_wiring", "kernel": name, "shape": list(shape),
+                      "dtype": dn, "launches": launched[name], "grad_max_abs_err": grad_err,
+                      "grad_bound": f"<= 1e-6*max|g| = {1e-6 * scale:.3e}",
+                      "forward": [{"max_abs_err": e, "bound": bnd} for e, bnd, _ in fwd],
+                      "ok": ok})
+                if not ok:
+                    failures.append((name, shape, dn, grad_err, launched[name]))
+    # D and E: no backward, so a call autograd would record raises
+    refused = {}
+    blk = BasicAttnBlock(64, 2).to(dev)
+    rows = torch.randn((8, 32, 64), generator=g, device=dev)
+    x = torch.randn((64, 64), generator=g, device=dev, requires_grad=True)
+    for label, call in (("fused_basic_attn_block", lambda: fb.fused_basic_attn_block(
+                            rows, 4, blk.fused_weights(), 2)),
+                        ("int8_quantize_pack", lambda: ig.quantize_pack(x, 10.0)),
+                        ("bf16_gemm", lambda: ig.bf16_gemm(x.bfloat16(),
+                                                           x.detach().bfloat16()))):
+        try:
+            call()
+            refused[label] = False
+        except RuntimeError as err:
+            refused[label] = "no backward" in str(err)
+    emit({"phase": "grad_wiring", "refused_under_grad": refused})
+    if failures or not all(refused.values()):
+        raise AssertionError(f"gradient wiring: {failures}, refused {refused}")
+
+
+def _seeded_model(cfg, device, seed=0):
+    from s2m2_torch.models.init import init_params
+    from s2m2_torch.models.s2m2 import S2M2
+    model = S2M2(cfg)
+    model.load_state_dict(init_params(cfg, seed=seed))
+    return model.to(device)
+
+
+def phase_card_vs_cpu():
+    """9.2: one fp32 step of CH32/NTR1/refine_iter=2 at 96x128, batch 2
+    (TF32 off), from the same seeded weights and batch on the card and on
+    the CPU: loss within 1e-4 relative, every gradient leaf within 1e-3 x
+    its max |g| on the CPU, no leaf non-zero on the CPU and zero or
+    non-finite on the card (a silent gradient stop), and the parameters
+    after the step (lr 1e-3) within 1e-5 plus what the gradients' own
+    difference explains (2 lr |dg| / |g|: Adam's first update is g / (|g|
+    + eps)). A leaf's bound has a floor of 1e-9: at initialisation the
+    MRT's q and k gradients are differences of nearly equal terms (a near
+    uniform softmax), 4e-11 to 6e-8 at most, and their float32 rounding
+    differs between the card and the CPU by up to 5.5e-11 (0.3% of such a
+    leaf's max, measured on an H100)."""
+    import torch
+    from s2m2_torch.config import ModelConfig
+    from s2m2_torch.ops import _build
+    from s2m2_torch.train import step as tstep
+    from s2m2_torch.train.data import synthetic_stereo_batches
+
+    cfg = ModelConfig(feature_channels=32, num_transformer=1, refine_iter=2)
+    batch = next(synthetic_stereo_batches(batch=2, height=96, width=128, max_disp=24,
+                                          seed=0, n_batches=1))
+    res = {}
+    lr = 1e-3
+    for dev in ("cuda", "cpu"):
+        model = _seeded_model(cfg, dev)
+        params = dict(model.named_parameters())
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics, grads = tstep.value_and_grad(tstep.make_loss_fn(model), params,
+                                              tstep.as_batch(batch, dev))
+        opt = tstep.make_optimizer(lr=lr)
+        opt.init(params)
+        opt.update(params, grads)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (float(metrics["loss"]), {k: v.float().cpu() for k, v in grads.items()},
+                    {k: v.detach().cpu() for k, v in params.items()},
+                    dict(_build.launch_counts), time.perf_counter() - t0)
+    loss_c, g_c, p_c, counts, sec_c = res["cuda"]
+    loss_h, g_h, p_h, _, sec_h = res["cpu"]
+    worst, stopped, param_bad = [], [], []
+    for k, gh in g_h.items():
+        gc = g_c[k]
+        scale = float(gh.abs().max())
+        err = float((gc - gh).abs().max())
+        worst.append((err / max(scale, 1e-30), k, err, scale))
+        if scale > 0 and (not torch.isfinite(gc).all() or float(gc.abs().max()) == 0):
+            stopped.append(k)
+        tol = 1e-5 + 2 * lr * (gc - gh).abs() / gh.abs().clamp(min=1e-30)
+        if not ((p_c[k] - p_h[k]).abs() <= tol).all():
+            param_bad.append(k)
+    worst.sort(reverse=True)
+    bad = [w for w in worst if w[2] > 1e-3 * w[3] + 1e-9]
+    loss_ok = abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    per_forward = {k: sum(v.values()) for k, v in main_path_shapes(cfg, 96, 128).items()}
+    ok = loss_ok and not bad and not stopped and not param_bad and \
+        all(counts[k] == n for k, n in per_forward.items())
+    emit({"phase": "train_card_vs_cpu", "config": "CH32 NTR1 refine_iter=2, 96x128, batch 2,"
+          " fp32, TF32 off", "loss_card": loss_c, "loss_cpu": loss_h,
+          "leaves": len(g_h), "worst_leaves": [(k, r, e) for r, k, e, _ in worst[:6]],
+          "leaves_over_bound": [k for _, k, _, _ in bad], "silent_stops": stopped,
+          "params_off": param_bad, "launches": counts, "card_s": sec_c, "cpu_s": sec_h,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("card and CPU training steps disagree")
+
+
+def _event_batches(batches, events):
+    """Yield `batches`, recording a CUDA event before each: events i and i+1
+    bracket the step that consumes batch i."""
+    import torch
+    for b in batches:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+        yield b
+
+
+def _train_run(cfg, batches, steps, label, ckpt=None):
+    """train() on the card in bf16 over fp32 masters, its launch counts set
+    to 0 just before and read just after; returns (model, optimizer,
+    history, per-step ms by CUDA events, peak bytes, counts)."""
+    import torch
+    from s2m2_torch.ops import _build
+    from s2m2_torch.train.trainer import train
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    model, opt, hist = train(cfg, _event_batches(batches, events), num_steps=steps,
+                             lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, seed=0,
+                             compute_dtype=torch.bfloat16, log_every=1, log=lambda *a: None,
+                             checkpoint_dir=ckpt, checkpoint_every=10 ** 6, device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])][:steps]
+    losses = [h["loss"] for h in hist]
+    want = {k: steps * sum(v.values())
+            for k, v in main_path_shapes(cfg, TRAIN_H, TRAIN_W).items()}
+    off = {k: counts[k] for k in ("int8_quantize_pack", "int8_gemm", "bf16_gemm")}
+    ok = (len(hist) == steps and all(np.isfinite(losses))
+          and all(counts[k] == n for k, n in want.items()) and not any(off.values()))
+    emit({"phase": "train", "model": label, "batch": batches[0]["img0"].shape[0],
+          "height": TRAIN_H, "width": TRAIN_W, "steps": steps,
+          "compute_dtype": "bfloat16 over float32 masters", "lr": TRAIN_LR,
+          "warmup_steps": TRAIN_WARMUP, "ms_per_step": ms,
+          "median_ms_from_step_3": float(np.median(ms[2:])) if steps > 2 else None,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+          "launches": counts, "launches_per_step": {k: counts[k] / steps for k in want},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{label} training: losses {losses}, launches {counts}")
+    return model, opt, counts
+
+
+def _profile_train_step(model, batch):
+    """One bf16 training step's forward (loss included) and backward, each
+    under torch.profiler: device ms by kernel family, and the backward's
+    device ms in the autograd nodes of A, B and C (their plain recompute)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from s2m2_torch.train import step as tstep
+    loss_fn = tstep.make_loss_fn(model, torch.bfloat16)
+    params = dict(model.named_parameters())
+    b = tstep.as_batch(batch, "cuda")
+    out = {}
+    total = None
+    for part in ("forward", "backward"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "forward":
+                total, _ = loss_fn(params, b)
+            else:
+                torch.autograd.grad(total, list(params.values()))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        fams, recompute = Counter(), Counter()
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                fams[_family(evt.key)] += evt.self_device_time_total / 1e3
+            for node in ("ScanlineAttentionBackward", "ScanlineCrossAttentionBackward",
+                         "FusedCorrelationOTBackward"):
+                if evt.key == node:
+                    recompute[node] += evt.device_time_total / 1e3
+        busy = sum(fams.values())
+        out[part] = {"wall_ms": wall, "device_busy_ms": busy if busy > 0 else "not measured",
+                     "families_ms": dict(fams.most_common())}
+        if part == "backward":
+            rec = sum(recompute.values())
+            out[part]["recompute_ms"] = dict(recompute) if rec > 0 else "not measured"
+            out[part]["recompute_share"] = rec / busy if rec > 0 and busy > 0 \
+                else "not measured"
+    emit({"phase": "train_profile", "model": "S", "compute_dtype": "bfloat16", **out})
+
+
+def _resume_check(cfg, model, opt, ckpt, batch):
+    """9.5: the checkpoint written after the last step restored into a
+    fresh model and optimizer; one more step from both on the same batch,
+    with deterministic algorithms on: the parameters must be bitwise
+    equal. Returns the launches of the two steps."""
+    import torch
+    from s2m2_torch.ops import _build
+    from s2m2_torch.tools.checkpoint import latest_step, restore_checkpoint
+    from s2m2_torch.train import step as tstep
+    step = latest_step(ckpt)
+    params, opt_state, meta = restore_checkpoint(ckpt, with_opt_state=True, with_meta=True)
+    fresh = _seeded_model(cfg, "cuda", seed=1)  # other weights until the restore
+    fresh.load_state_dict(params)
+    fresh_opt = tstep.make_optimizer(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                     total_steps=TRAIN_STEPS)
+    fresh_step = tstep.make_train_step(cfg, fresh, fresh_opt, torch.bfloat16)
+    fresh_opt.load_state_dict(opt_state)
+    live_step = tstep.make_train_step(cfg, model, opt, torch.bfloat16)
+    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    _build.reset_launch_counts()
+    try:
+        loss_live = float(live_step(batch)["loss"])
+        loss_fresh = float(fresh_step(batch)["loss"])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1])
+        if flags[2] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = flags[2]
+    counts = dict(_build.launch_counts)
+    live, other = model.state_dict(), fresh.state_dict()
+    differ = [k for k in live if not torch.equal(live[k], other[k])]
+    moments = [k for key in ("mu", "nu") for k in opt.state[key]
+               if not torch.equal(opt.state[key][k], fresh_opt.state[key][k])]
+    ok = not differ and not moments and opt.state["count"] == fresh_opt.state["count"] \
+        and meta == {"step": step} and step == TRAIN_STEPS
+    emit({"phase": "checkpoint_resume", "restored_step": step, "loss_live": loss_live,
+          "loss_restored": loss_fresh, "params": len(live), "params_differing": differ[:10],
+          "moments_differing": moments[:10], "count": opt.state["count"],
+          "launches": counts, "ok": ok})
+    if not ok:
+        raise AssertionError(f"resumed step differs: {differ[:5]} {moments[:5]}")
+    return counts
+
+
+def phase_offline_calibration(pair):
+    """9.6: tools/calibrate.py for S int8 on its default (the engine's
+    benchmark pair) writes the .npy; a fresh engine that loads it and an
+    engine that calibrates itself on the same pair give the same scales and,
+    on phase 5's first pair, the same disparity. Returns the launches."""
+    import tempfile
+    import torch
+    from s2m2_torch.ops import _build
+    from s2m2_torch.runtime.engine import StereoEngine
+    from s2m2_torch.tools import calibrate
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "s_int8_calib.npy")
+        t0 = time.perf_counter()
+        calibrate.main(["--model", "S", "--out", path])
+        cli_s = time.perf_counter() - t0
+        loaded = StereoEngine("S", precision="int8", seed=0)
+        scales = loaded.load_calibration(path)
+    itself = StereoEngine("S", precision="int8", seed=0)
+    own = calibrate.calibrate_engine(itself, [tuple(x[0] for x in
+                                                    itself._benchmark_calib_pair())])
+    d_loaded, d_itself = loaded.run(*pair)[0], itself.run(*pair)[0]
+    counts = dict(_build.launch_counts)
+    diff = float(np.abs(d_loaded - d_itself).max())
+    ok = bool(np.array_equal(scales, own)) and diff == 0.0 and \
+        np.isfinite(d_loaded).all() and counts["int8_gemm"] > 0
+    emit({"phase": "offline_calibration", "model": "S", "precision": "int8",
+          "sites": len(scales), "cli_seconds": cli_s,
+          "scales_equal": bool(np.array_equal(scales, own)),
+          "max_abs_disp_diff_px": diff, "launches": counts, "ok": ok})
+    del loaded, itself
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"calibration cache differs from self-calibration by {diff} px")
+    return counts
+
+
+def phase_train(pair):
+    """Phase 9: training on the card (see the module docstring). Returns the
+    launches of its main-path runs (training, resume, calibration)."""
+    import tempfile
+    import torch
+    from s2m2_torch.config import get_config
+    from s2m2_torch.train.augment import augment_batches
+    from s2m2_torch.train.data import synthetic_stereo_batches
+
+    t0 = time.perf_counter()
+    phase_grad_wiring()
+    phase_card_vs_cpu()
+    launches = Counter()
+    cfg = get_config("S")
+    batches = list(augment_batches(synthetic_stereo_batches(
+        batch=TRAIN_BATCH, height=TRAIN_H, width=TRAIN_W, max_disp=64, seed=0,
+        n_batches=TRAIN_STEPS + 1), seed=0))
+    with tempfile.TemporaryDirectory() as ckpt:
+        model, opt, counts = _train_run(cfg, batches, TRAIN_STEPS, "S", ckpt)
+        launches.update(counts)
+        launches.update(_resume_check(cfg, model, opt, ckpt, batches[TRAIN_STEPS]))
+    _profile_train_step(model, batches[TRAIN_STEPS])
+    del model, opt
+    torch.cuda.empty_cache()
+    xl_batches = [{k: v[:1] for k, v in b.items()} for b in batches[:XL_TRAIN_STEPS + 1]]
+    model, opt, counts = _train_run(get_config("XL"), xl_batches, XL_TRAIN_STEPS, "XL")
+    launches.update(counts)
+    del model, opt
+    torch.cuda.empty_cache()
+    launches.update(phase_offline_calibration(pair))
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
@@ -1121,7 +1521,8 @@ def kernels_line(results, launches):
     blocks on the same rows); `fp32` holds the same sums in float32. A, B and
     C add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
     block off. max_abs_err is the largest over all of the kernel's
-    comparisons; launches counts every main-path request of phases 5-8."""
+    comparisons; launches counts every main-path request of phases 5-9 (the
+    training steps, the resumed steps and the calibration tool's runs in 9)."""
     out = []
     for name, by_dtype in results.items():
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1194,6 +1595,7 @@ def main():
     with torch.inference_mode():
         e_entries = phase_int8_sites(xl_int8_log)
     launches.update(phase_calibration(shapes, pairs[0], native_seconds))
+    launches.update(phase_train(pairs[0]))
     line = kernels_line(results, launches)
     for name, entry in e_entries.items():
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],

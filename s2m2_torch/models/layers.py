@@ -107,8 +107,45 @@ def avg_pool2d(x, k=2):
 
 
 def upsample2x_bilinear(x):
-    """Bilinear x2 upsample, half-pixel centers (align_corners=False)."""
+    """Bilinear x2 upsample, half-pixel centers (align_corners=False). A call
+    autograd records goes through `_Upsample2xBilinear`, whose backward is
+    deterministic."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample2xBilinear.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def _stencil2x(n, device):
+    """(2n, n) float32 matrix of the 1D bilinear x2 upsample with half-pixel
+    centers and edge clamping: out[2i] = x[i-1]/4 + 3x[i]/4, out[2i+1] =
+    3x[i]/4 + x[i+1]/4."""
+    i = torch.arange(n)
+    m = torch.zeros(2 * n, n)
+    m.index_put_((2 * i, i), torch.full((n,), 0.75))
+    m.index_put_((2 * i, (i - 1).clamp(min=0)), torch.full((n,), 0.25), accumulate=True)
+    m.index_put_((2 * i + 1, i), torch.full((n,), 0.75))
+    m.index_put_((2 * i + 1, (i + 1).clamp(max=n - 1)), torch.full((n,), 0.25),
+                 accumulate=True)
+    return m.to(device)
+
+
+class _Upsample2xBilinear(torch.autograd.Function):
+    """F.interpolate's bilinear x2 forward; the backward is the transposed
+    stencil as two float32 matrix products. torch's CUDA backward of
+    bilinear interpolation adds with atomics, so its bits vary from run to
+    run and `torch.use_deterministic_algorithms` refuses it; this one gives
+    a training step that repeats to the bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = x.shape[-2:]
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w = ctx.hw
+        g = torch.matmul(grad.float(), _stencil2x(w, grad.device))       # (.., 2h, w)
+        return torch.matmul(_stencil2x(h, grad.device).t(), g).to(grad.dtype)
 
 
 def upsample_nearest(x, factor):

@@ -3,10 +3,13 @@
 Every image row is an independent sequence, so q, k, v are (B, N, D) with
 B = batch x heads x rows folded together. On a CUDA tensor the wrappers
 launch the hand-written kernel of `csrc/scanline_attention.cu`; on a CPU
-tensor they run the plain version beside it. Numerics follow
-`s2m2_tpu/ops/flash_attention.py`: float32 scores scaled after the dot,
-float32 softmax, probabilities rounded to v's dtype before PV, PV
-accumulated in float32.
+tensor they run the plain version beside it. A call on the card that
+autograd records (grad enabled, an input requiring grad) goes through
+`ScanlineAttention` / `ScanlineCrossAttention`, whose backward recomputes
+the plain version (ops/_grad.py); serving keeps the direct launch.
+Numerics follow `s2m2_tpu/ops/flash_attention.py`: float32 scores scaled
+after the dot, float32 softmax, probabilities rounded to v's dtype
+before PV, PV accumulated in float32.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._grad import plain_vjp, wants_grad
 
 MAX_HEAD_DIM = 384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -147,13 +151,69 @@ def _launch(name, dirs, inputs, b, n, d):
     return out
 
 
+def _attention_kernel(q, k, v):
+    """Kernel A's direct launch on contiguous CUDA tensors (no gradient)."""
+    return _launch("scanline_attention", [(q.data_ptr(), k.data_ptr(), v.data_ptr())],
+                   (q, k, v), *q.shape)
+
+
+def _cross_kernel(q, k, v):
+    """Kernel B's direct launch on the packed (2B, N, D) batch (no gradient)."""
+    b2, n, d = q.shape
+    b = b2 // 2
+    half = b * n * d * q.element_size()  # view y's offset, in bytes
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    return _launch("scanline_cross_attention", [(qp, kp + half, vp + half), (qp + half, kp, vp)],
+                   (q, k, v), b, n, d)
+
+
+def packed_cross_attention_plain(q, k, v):
+    """Kernel B's plain version on the packed (x | y) batch: (2B, N, D) in,
+    attn(qx, ky, vy) then attn(qy, kx, vx) out."""
+    b = q.shape[0] // 2
+    return torch.cat(scanline_cross_attention_plain(q[:b], k[:b], v[:b],
+                                                    q[b:], k[b:], v[b:]))
+
+
+class ScanlineAttention(torch.autograd.Function):
+    """Kernel A with a gradient: the forward launches the kernel, the
+    backward is the vector-Jacobian product of `scanline_attention_plain`
+    recomputed from the saved inputs (ops/_grad.py)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _attention_kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(scanline_attention_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, (grad,))
+
+
+class ScanlineCrossAttention(torch.autograd.Function):
+    """Kernel B (packed) with a gradient, as `ScanlineAttention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _cross_kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(packed_cross_attention_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, (grad,))
+
+
 def scanline_attention(q, k, v):
-    """Row-batched attention: q, k, v (B, N, D) -> (B, N, D)."""
+    """Row-batched attention: q, k, v (B, N, D) -> (B, N, D). On the card a
+    call that autograd records goes through `ScanlineAttention`."""
     _check((q, k, v))
     if q.device.type == "cpu":
         return scanline_attention_plain(q, k, v)
-    return _launch("scanline_attention", [(q.data_ptr(), k.data_ptr(), v.data_ptr())],
-                   (q, k, v), *q.shape)
+    if wants_grad(q, k, v):
+        return ScanlineAttention.apply(q, k, v)
+    return _attention_kernel(q, k, v)
 
 
 def scanline_cross_attention(qx, kx, vx, qy, ky, vy):
@@ -172,16 +232,13 @@ def scanline_cross_attention(qx, kx, vx, qy, ky, vy):
 def scanline_cross_attention_packed(q, k, v):
     """`scanline_cross_attention` on the packed (x | y) batch: q, k, v are
     (2B, N, D) with view x in rows [0, B); returns (2B, N, D), attn(qx, ky,
-    vy) then attn(qy, kx, vx), written by the kernel into one tensor."""
+    vy) then attn(qy, kx, vx), written by the kernel into one tensor. On the
+    card a call that autograd records goes through `ScanlineCrossAttention`."""
     _check((q, k, v))
-    b2, n, d = q.shape
-    if b2 % 2:
-        raise ValueError(f"packed cross attention needs an even batch, got {b2}")
-    b = b2 // 2
+    if q.shape[0] % 2:
+        raise ValueError(f"packed cross attention needs an even batch, got {q.shape[0]}")
     if q.device.type == "cpu":
-        return torch.cat(scanline_cross_attention_plain(q[:b], k[:b], v[:b],
-                                                        q[b:], k[b:], v[b:]))
-    half = b * n * d * q.element_size()  # view y's offset, in bytes
-    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
-    return _launch("scanline_cross_attention", [(qp, kp + half, vp + half), (qp + half, kp, vp)],
-                   (q, k, v), b, n, d)
+        return packed_cross_attention_plain(q, k, v)
+    if wants_grad(q, k, v):
+        return ScanlineCrossAttention.apply(q, k, v)
+    return _cross_kernel(q, k, v)

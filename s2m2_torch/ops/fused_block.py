@@ -6,7 +6,9 @@ of the two views. On a CUDA tensor the wrapper launches the hand-written
 kernel of `csrc/fused_basic_attn_block.cu` (a persistent, warp-specialized
 wgmma kernel fed by TMA; float32 by split TF32), with the instance `plan`
 chooses from the table `_INSTANCES`; on a CPU tensor it runs the plain
-version beside it. Numerics follow the TPU kernel's body
+version beside it. D has no backward and takes no part in training: on
+the card a call that autograd would record raises (ops/_grad.py). Numerics
+follow the TPU kernel's body
 (`s2m2_tpu/ops/fused_block.py:_block_body`), with its rounding points in
 the compute dtype; GELU uses the exact erf.
 
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import refuse_grad
 
 MAX_DIM = 512  # C and E the kernel takes (s2m2_tpu/models/mrt.py:25)
 N_WEIGHTS = 18
@@ -247,4 +250,5 @@ def fused_basic_attn_block(rows, right0, weights, num_heads):
         ox, oy = fused_basic_attn_block_plain(rows[:right0], rows[right0:], weights,
                                               num_heads)
         return torch.cat([ox, oy])
+    refuse_grad("fused_basic_attn_block", rows, *weights)
     return _launch(rows, right0, weights, num_heads, e)

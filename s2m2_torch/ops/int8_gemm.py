@@ -29,7 +29,8 @@ table `_INSTANCES` the build compiles (`instances_header`).
 On a CUDA tensor each wrapper launches its kernel (and counts the launch
 in `_build.launch_counts`) or raises; on a CPU tensor it runs the plain
 version beside it, whose integer products are exact (float64 sums of
-int8 products stay below 2**53).
+int8 products stay below 2**53). E has no backward and serves only: on
+the card a call that autograd would record raises (ops/_grad.py).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._grad import refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -314,6 +316,10 @@ def quantize_pack(x, inv, conv=None, rows=None, nhwc=False):
     name = "int8_quantize_pack"
     if not _device(x, name):
         return quantize_pack_plain(x, inv, conv, rows, nhwc)
+    # grad mode checked inline, so that serving (E launches 1,614 times per
+    # XL int8 forward) pays no Python call for the guard
+    if torch.is_grad_enabled():
+        refuse_grad(name, x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)")
     if nhwc or conv is not None:
@@ -410,6 +416,8 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
             return y
         _write_nchw(out, y, m_base)
         return out
+    if torch.is_grad_enabled():
+        refuse_grad(name, *[t for t in (w_scale, bias) if t is not None])
     if conv is None:
         _check_operand(a, name, "a", torch.int8, 32)
     elif a.data_ptr() % 16:
@@ -445,6 +453,8 @@ def bf16_gemm(a, w, out_dtype=torch.bfloat16):
         raise ValueError(f"{name}: a {tuple(a.shape)} and w {tuple(w.shape)} do not match")
     if not _device(a, name):
         return bf16_gemm_plain(a, w, out_dtype)
+    if torch.is_grad_enabled():
+        refuse_grad(name, a, w)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: output dtype {out_dtype} not supported")
     _check_operand(a, name, "a", torch.bfloat16, 16)

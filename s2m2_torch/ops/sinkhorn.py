@@ -10,7 +10,9 @@ accumulator; cv and prob are returned in f0's dtype, as
 
 On a CUDA tensor the wrapper launches `csrc/sinkhorn_ot.cu` by the route
 `plan(W, C, dtype, positivity)` chooses; on a CPU tensor it runs the plain
-version beside it. The resident route keeps the whole float32 row in the
+version beside it; a call on the card that autograd records goes through
+`FusedCorrelationOT`, whose backward recomputes the plain version
+(ops/_grad.py). The resident route keeps the whole float32 row in the
 shared memory of a thread-block cluster of up to 8 CTAs (`cluster`) and
 needs no workspace; the streamed route, for rows too wide for a cluster,
 keeps it in a (B*H, W+1, W+1) float32 workspace the wrapper allocates.
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._grad import plain_vjp, wants_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448          # shared bytes one block may use on the H100
@@ -165,18 +168,8 @@ def fused_correlation_ot_plain(f0, f1, ot_iter=3, use_positivity=True):
     return prob.to(f0.dtype).reshape(b, h, w, w), cv_out.reshape(b, h, w, w)
 
 
-def fused_correlation_ot(f0, f1, ot_iter=3, use_positivity=True):
-    """f0, f1: (B, H, W, C) normalized left/right features. Returns
-    (prob, cv), each (B, H, W, W) in f0's dtype: the masked transport
-    probabilities and the raw (unmasked) correlation volume."""
-    if f0.dim() != 4 or f0.shape != f1.shape or f0.dtype != f1.dtype \
-            or f0.device != f1.device:
-        raise ValueError("f0 and f1 must be (B, H, W, C) of one shape, dtype "
-                         "and device")
-    if f0.device.type == "cpu":
-        return fused_correlation_ot_plain(f0, f1, ot_iter, use_positivity)
-    if f0.device.type != "cuda":
-        raise ValueError(f"unsupported device {f0.device}")
+def _ot_kernel(f0, f1, ot_iter, use_positivity):
+    """Kernel C's direct launch on CUDA tensors (no gradient)."""
     if f0.dtype not in _DTYPES:
         raise TypeError(f"fused_correlation_ot: dtype {f0.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -200,3 +193,43 @@ def fused_correlation_ot(f0, f1, ot_iter=3, use_positivity=True):
                 b * h, w, c, ot_iter, int(use_positivity), _DTYPES[f0.dtype],
                 int(p.route == "resident"), p.cluster, p.cols, p.stages, p.chunk, p.smem)
     return prob, cv
+
+
+class FusedCorrelationOT(torch.autograd.Function):
+    """Kernel C with a gradient to both outputs: the forward launches the
+    kernel, the backward is the vector-Jacobian product of
+    `fused_correlation_ot_plain` recomputed from the saved features
+    (ops/_grad.py). The recompute holds about 2 ot_iter float32 (B*H, W+1,
+    W+1) tensors for the backward's duration."""
+
+    @staticmethod
+    def forward(ctx, f0, f1, ot_iter, use_positivity):
+        ctx.save_for_backward(f0, f1)
+        ctx.ot = (ot_iter, use_positivity)
+        return _ot_kernel(f0, f1, ot_iter, use_positivity)
+
+    @staticmethod
+    def backward(ctx, grad_prob, grad_cv):
+        ot_iter, use_positivity = ctx.ot
+        g0, g1 = plain_vjp(
+            lambda a, b: fused_correlation_ot_plain(a, b, ot_iter, use_positivity),
+            ctx.saved_tensors, ctx.needs_input_grad[:2], (grad_prob, grad_cv))
+        return g0, g1, None, None
+
+
+def fused_correlation_ot(f0, f1, ot_iter=3, use_positivity=True):
+    """f0, f1: (B, H, W, C) normalized left/right features. Returns
+    (prob, cv), each (B, H, W, W) in f0's dtype: the masked transport
+    probabilities and the raw (unmasked) correlation volume. On the card a
+    call that autograd records goes through `FusedCorrelationOT`."""
+    if f0.dim() != 4 or f0.shape != f1.shape or f0.dtype != f1.dtype \
+            or f0.device != f1.device:
+        raise ValueError("f0 and f1 must be (B, H, W, C) of one shape, dtype "
+                         "and device")
+    if f0.device.type == "cpu":
+        return fused_correlation_ot_plain(f0, f1, ot_iter, use_positivity)
+    if f0.device.type != "cuda":
+        raise ValueError(f"unsupported device {f0.device}")
+    if wants_grad(f0, f1):
+        return FusedCorrelationOT.apply(f0, f1, ot_iter, use_positivity)
+    return _ot_kernel(f0, f1, ot_iter, use_positivity)

@@ -79,8 +79,10 @@ correlation's passes and the Sinkhorn iterations.
 
 `requests`: for each precision in turn, one StereoEngine (seeded random
 weights) serving `--n` requests on 1216x1024 pairs after one warm-up
-request (which calibrates an int8 engine), printing every request's ms.
-It uses only the engine's public API, so it also runs against an older
+request (which calibrates an int8 engine), printing every request's ms
+and the device busy ms of one more forward under torch.profiler (which a
+host-bound request time hides). It uses only the engine's public API, so
+it also runs against an older
 checkout of the package:
 `PYTHONPATH=<checkout> python3 s2m2_torch/tools/chip_probe.py requests ...`.
 
@@ -499,6 +501,7 @@ def _pair(rng, disp):
 
 def cmd_requests(args):
     import torch
+    from torch.profiler import ProfilerActivity, profile
     import s2m2_torch
     from s2m2_torch.ops import _build
     from s2m2_torch.runtime.engine import StereoEngine
@@ -511,10 +514,17 @@ def cmd_requests(args):
         eng.run(*pairs[0])  # warm-up; calibrates an int8 engine
         warm_s = time.perf_counter() - t0
         ms = [float(eng.run(*pairs[i % len(pairs)])[4]) for i in range(args.n)]
+        left, right = (x[None] for x in pairs[0])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.forward_padded(left, right)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         emit({"probe": "requests", "label": args.label, "package": s2m2_torch.__file__,
               "model": args.model, "precision": precision, "requests": args.n,
               "warmup_s": warm_s, "ms_per_request": ms, "median_ms": float(np.median(ms)),
-              "mean_ms": float(np.mean(ms))}, args.out)
+              "mean_ms": float(np.mean(ms)),
+              "device_busy_ms": busy if busy > 0 else "not measured"}, args.out)
         del eng
         torch.cuda.empty_cache()
 

@@ -1,11 +1,18 @@
-"""Synthetic stereo scenes (numpy), copied from `s2m2_tpu/train/data.py`.
+"""Training data (numpy), copied from `s2m2_tpu/train/data.py`.
 
-`_random_scene` gives a textured pair with exact ground-truth disparity;
-the int8 engine calibrates its benchmark on one (a pinned seed), and the
-tests draw held-out scenes from `synthetic_stereo_batches`. The rest of
-that module (directory loaders) waits for the training slice.
+- `synthetic_stereo_batches`: procedural random-shape stereo pairs with
+  exact ground-truth disparity (`_random_scene`; the int8 engine also
+  calibrates its benchmark on one, a pinned seed);
+- `directory_batches`: Middlebury-style scene directories
+  (im0.png / im1.png / disp0GT.pfm) with random crops to a fixed shape.
+
+Batches are dicts {img0, img1, gt_disp, valid} of (B, H, W, *) float32,
+what `train.step.make_train_step` consumes.
 """
 from __future__ import annotations
+
+import glob
+import os
 
 import numpy as np
 
@@ -52,3 +59,36 @@ def synthetic_stereo_batches(batch=2, height=128, width=160, max_disp=24,
         yield {"img0": img0, "img1": img1, "gt_disp": gt,
                "valid": np.ones_like(gt)}
         i += 1
+
+
+def directory_batches(root, batch=1, crop=(384, 512), seed=0, loop=True):
+    """Middlebury-style scene loader with random crops to a static shape."""
+    from ..tools.eval_dataset import read_pfm
+    from ..utils.image import read_images
+
+    scenes = sorted(d for d in glob.glob(os.path.join(root, "*"))
+                    if os.path.exists(os.path.join(d, "disp0GT.pfm")))
+    if not scenes:
+        raise FileNotFoundError(f"no scenes under {root}")
+    rng = np.random.default_rng(seed)
+    ch, cw = crop
+    while True:
+        img0 = np.empty((batch, ch, cw, 3), np.float32)
+        img1 = np.empty((batch, ch, cw, 3), np.float32)
+        gt = np.empty((batch, ch, cw, 1), np.float32)
+        valid = np.empty((batch, ch, cw, 1), np.float32)
+        for b in range(batch):
+            scene = scenes[rng.integers(len(scenes))]
+            L, R = read_images(os.path.join(scene, "im0.png"),
+                               os.path.join(scene, "im1.png"))
+            D = read_pfm(os.path.join(scene, "disp0GT.pfm"))
+            y0 = rng.integers(max(L.shape[0] - ch, 0) + 1)
+            x0 = rng.integers(max(L.shape[1] - cw, 0) + 1)
+            img0[b] = L[y0:y0 + ch, x0:x0 + cw]
+            img1[b] = R[y0:y0 + ch, x0:x0 + cw]
+            d = D[y0:y0 + ch, x0:x0 + cw]
+            gt[b, ..., 0] = np.where(np.isfinite(d), d, 0)
+            valid[b, ..., 0] = np.isfinite(d) & (d > 0)
+        yield {"img0": img0, "img1": img1, "gt_disp": gt, "valid": valid}
+        if not loop:
+            break

@@ -105,7 +105,10 @@ def test_package_imports_no_jax():
             "s2m2_torch.calibration.base, s2m2_torch.calibration.cem, "
             "s2m2_torch.calibration.grad_descent, s2m2_torch.calibration.keypoint, "
             "s2m2_torch.calibration.visualize, s2m2_torch.tools.bench, "
-            "s2m2_torch.tools.eval_dataset; "
+            "s2m2_torch.tools.eval_dataset, s2m2_torch.tools.checkpoint, "
+            "s2m2_torch.tools.calibrate, s2m2_torch.tools.fetch_weights, "
+            "s2m2_torch.train.loss, s2m2_torch.train.step, s2m2_torch.train.trainer, "
+            "s2m2_torch.train.augment, s2m2_torch.train.data; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'s2m2_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

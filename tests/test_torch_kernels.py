@@ -286,3 +286,117 @@ def test_probe_chain_matches_plain_on_card(cuda, kind):
     else:
         assert float((got.float() - want.float()).abs().max()) <= \
             2e-2 * float(want.float().abs().max())
+
+
+def _vjp(fn, inputs, cots):
+    """(outputs, input gradients) of fn at fresh leaves of `inputs`."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs, leaves, cots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", [("A", (4, 128, 64)), ("A", (3, 96, 384)),
+                                        ("B", (8, 128, 64)), ("C", (2, 12, 128, 64)),
+                                        ("C", (1, 4, 96, 24))])
+def test_gradients_through_kernels_equal_the_plain_versions_on_card(cuda, kind, shape,
+                                                                    dtype):
+    """With grad enabled and inputs requiring grad, A, B and C launch their
+    kernel once (an autograd Function) and their gradients are the plain
+    version's: the backward recomputes it, so they agree to the bit on the
+    same cotangents. The forward stays within the kernel tolerances."""
+    from s2m2_torch.models.layers import layer_norm
+    g = torch.Generator(device=cuda).manual_seed(1)
+    if kind == "C":
+        inputs = [layer_norm(torch.randn(shape, generator=g, device=cuda)).to(dtype)
+                  for _ in range(2)]
+        b, h, w, _ = shape
+        cots = tuple(torch.randn((b, h, w, w), generator=g, device=cuda).to(dtype)
+                     for _ in range(2))
+        fn, plain, name = (sinkhorn.fused_correlation_ot, sinkhorn.fused_correlation_ot_plain,
+                           "fused_correlation_ot")
+    else:
+        inputs = [torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3)]
+        cots = (torch.randn(shape, generator=g, device=cuda).to(dtype),)
+        fn, plain, name = ((fa.scanline_attention, fa.scanline_attention_plain,
+                            "scanline_attention") if kind == "A" else
+                           (fa.scanline_cross_attention_packed,
+                            fa.packed_cross_attention_plain, "scanline_cross_attention"))
+    before = dict(_build.launch_counts)
+    outs, grads = _vjp(fn, inputs, cots)
+    torch.cuda.synchronize()
+    assert outs[0].grad_fn is not None
+    assert _build.launch_counts[name] == before[name] + 1
+    assert sum(_build.launch_counts.values()) == sum(before.values()) + 1
+    want_outs, want = _vjp(plain, inputs, cots)
+    for a, w in zip(grads, want):
+        assert a.dtype == dtype and torch.equal(a, w)
+    for a, w in zip(outs, want_outs):
+        tol = 1e-3 if dtype == torch.float32 else 2e-2 * float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= tol
+
+
+def test_fused_block_and_int8_kernels_refuse_grad_on_card(cuda):
+    """D and E have no backward: on the card a call that autograd would
+    record raises; under no_grad the same calls launch."""
+    from s2m2_torch.models.attention import BasicAttnBlock
+    from s2m2_torch.ops import int8_gemm as ig
+    blk = BasicAttnBlock(32, 2).to(cuda)
+    rows = torch.randn(4, 16, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fb.fused_basic_attn_block(rows, 2, blk.fused_weights(), 2)
+    x = torch.randn(64, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ig.quantize_pack(x, 10.0)
+    a = ig.quantize_pack(x.detach(), 10.0)
+    w = torch.randint(-127, 128, (48, 32), dtype=torch.int8, device=cuda)
+    scale = torch.full((48,), 0.01, device=cuda)
+    bias = torch.zeros(48, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ig.int8_gemm(a, w, scale, 0.1, bias)
+    wb = torch.randn(48, 32, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ig.bf16_gemm(x.detach().bfloat16(), wb)
+    with torch.no_grad():
+        fb.fused_basic_attn_block(rows, 2, blk.fused_weights(), 2)
+        ig.int8_gemm(a, w, scale, 0.1, bias)
+        ig.bf16_gemm(x.bfloat16(), wb)
+    torch.cuda.synchronize()
+
+
+def test_serving_makes_no_function_call_on_card(cuda, monkeypatch):
+    """Under inference_mode a forward launches A, B and C directly, with the
+    counts the shapes give, and never enters their autograd Functions; with
+    grad enabled the same forward goes through them once a launch and
+    reaches the MRT's q, k and v weights."""
+    from s2m2_torch.config import ModelConfig
+    from s2m2_torch.models.init import init_params
+    from s2m2_torch.models.s2m2 import S2M2
+    calls = []
+    for cls in (fa.ScanlineAttention, fa.ScanlineCrossAttention, sinkhorn.FusedCorrelationOT):
+        orig = cls.apply
+        monkeypatch.setattr(cls, "apply",
+                            lambda *a, _o=orig, _n=cls.__name__: calls.append(_n) or _o(*a))
+    cfg = ModelConfig(feature_channels=32, num_transformer=1, refine_iter=2)
+    model = S2M2(cfg)
+    model.load_state_dict(init_params(cfg, seed=0))
+    model = model.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a, b = (torch.rand((1, 64, 96, 3), generator=g, device=cuda) * 255 for _ in range(2))
+    names = ("scanline_attention", "scanline_cross_attention", "fused_correlation_ot")
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        model(a, b)
+    served = {n: _build.launch_counts[n] for n in names}
+    assert calls == [] and served["fused_correlation_ot"] == 1
+    assert served["scanline_attention"] > 0 and served["scanline_cross_attention"] > 0
+    _build.reset_launch_counts()
+    disp, _, _ = model(a, b)
+    assert {n: _build.launch_counts[n] for n in names} == served
+    assert len(calls) == sum(served.values())
+    disp.mean().backward()
+    mrt = model.transformer.uformer_list[0]
+    for name, p in mrt.named_parameters():
+        if name.endswith(("q.weight", "k.weight", "v.weight")):
+            assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
