@@ -87,6 +87,23 @@ non-zero:
    `tools/calibrate.py` for S int8 writes the scale cache; an engine that
    loads it gives the scales and, on phase 5's first pair, the disparity
    of an engine that calibrated itself.
+10. export: `torch.export` programs (.pt2, s2m2_torch/tools/export.py) of
+   the main path at 1216x1024 with phase 5's pairs and seeded weights (seed
+   0), each exported on the card, saved to a temporary directory, loaded
+   and served: (a) S bf16 with its weights embedded, (b) XL bf16 with the
+   fused block, weight-free (the state dict an argument), (c) XL int8 from
+   phase 7's calibration (its scales baked in, the prequantized weights an
+   argument). Each prints export, save and load seconds, the file's MB, the
+   max |disp| against the live model with the same casts (bound 1e-3 px;
+   the same kernels run, so 0.0 is expected), ms per request through the
+   program beside the live model's, in turns, and A-E's launches per call,
+   which must equal the live forward's: (a) A/B/C 20/10/1; (b) A/B/C/D
+   32/18/1/12; (c) A/B/C 44/30/1 and E's packs and GEMMs as the live int8
+   forward logs them (a plain version traced into the program would show
+   as a missing launch). (a) is also loaded and run in a subprocess that
+   imports only s2m2_torch.tools.export, which must load no jax, s2m2_tpu
+   or s2m2_torch.models module (it runs while (b) is exported and ends
+   before (b)'s requests).
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -753,7 +770,8 @@ def _int8_counts(eng, label, counts, n_requests):
 
 def phase_int8(shapes, pairs, xl_bf16_disps):
     """XL int8 at 1216x1024 (4 requests, profiled), then S int8a and int8r
-    (2 requests each). Returns (launches, the XL forward's site log)."""
+    (2 requests each). Returns (launches, the XL forward's site log, the XL
+    engine's calibrated scales, which phase 10 exports)."""
     import torch
     from s2m2_torch.runtime.engine import StereoEngine
 
@@ -762,7 +780,7 @@ def phase_int8(shapes, pairs, xl_bf16_disps):
     runs = [("XL", "int8", pairs[:N_XL_REQUESTS], XL_LAUNCHES[False]),
             ("S", "int8a", pairs[:N_INT8_S_REQUESTS], s_forward),
             ("S", "int8r", pairs[:N_INT8_S_REQUESTS], s_forward)]
-    xl_log = None
+    xl_log = xl_scales = None
     for model, precision, run_pairs, per_forward in runs:
         eng = StereoEngine(model, precision=precision, seed=0)
         t0 = time.perf_counter()
@@ -781,14 +799,14 @@ def phase_int8(shapes, pairs, xl_bf16_disps):
                "quantized_gemms": eng.quant_gemms, "e_launches_per_forward": per,
                "launches": counts}
         if model == "XL":
-            xl_log = log
+            xl_log, xl_scales = log, eng.quant_scales
             delta = [float(np.abs(a - b).mean()) for a, b in zip(disps, xl_bf16_disps)]
             rec["mean_abs_disp_diff_vs_bf16_unfused_px"] = float(np.mean(delta))
             emit({**profile_forward(eng, precision, *run_pairs[0]), "model": model})
         emit(rec)
         del eng
         torch.cuda.empty_cache()
-    return launches, xl_log
+    return launches, xl_log, xl_scales
 
 
 def _site_pack_inputs(g, rec):
@@ -1492,6 +1510,207 @@ def phase_train(pair):
     return launches
 
 
+# phase 10: requests each program serves at 1216x1024, and the bound on its
+# disparity against the live model with the same casts (the same kernels
+# run in the same order, so 0.0 is expected)
+N_EXPORT_REQUESTS = {"S": N_REQUESTS, "XL": N_XL_REQUESTS}
+EXPORT_DISP_BOUND = 1e-3
+NOT_LAUNCHED = {"fused_basic_attn_block": 0, "int8_quantize_pack": 0, "int8_gemm": 0}
+
+
+def _synced_ms(fn, *args):
+    """(fn(*args), host ms of the call ending in a device synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _same_casts(model, dtype):
+    """The live model as the exported program runs it: float32 NHWC images
+    cast to `dtype`, float32 outputs."""
+    import torch
+
+    def live(a, b):
+        with torch.inference_mode():
+            return tuple(o.float() for o in model(a.to(dtype), b.to(dtype)))
+    return live
+
+
+def _serve_artifact(label, model, blob, export_s, tmp, live, state, per_call, pairs):
+    """Save `blob`, load it on the card, check one call's launch counts
+    against `per_call` (A-E; a plain version inlined into the program would
+    show as a missing launch), then serve `pairs` through the program and
+    through `live` in turns, with the counts set to 0 just before and read
+    just after. Emits one line; returns (the artifact's path, the launches
+    of the requests)."""
+    import torch
+    from s2m2_torch.ops import _build
+    from s2m2_torch.tools.export import load_artifact, save_artifact
+    path = os.path.join(tmp, f"{label.replace(' ', '_')}.pt2")
+    t0 = time.perf_counter()
+    save_artifact(path, blob)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    extra = () if state is None else (state,)
+    imgs = [tuple(torch.from_numpy(x[None]).cuda() for x in pair) for pair in pairs]
+    fn(*extra, *imgs[0])
+    live(*imgs[0])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    fn(*extra, *imgs[0])
+    torch.cuda.synchronize()
+    counts = {k: _build.launch_counts[k] for k in (*REPLACES,)}
+    want = {**NOT_LAUNCHED, **per_call}
+    if counts != want:
+        raise AssertionError(f"export {label}: launches per call {counts}, expected {want}")
+    _build.reset_launch_counts()
+    art_ms, live_ms, diffs = [], [], []
+    for a, b in imgs:
+        got, t = _synced_ms(fn, *extra, a, b)
+        art_ms.append(t)
+        ref, t = _synced_ms(live, a, b)
+        live_ms.append(t)
+        for out in got:
+            if out.shape != (1, H, W, 1) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"export {label}: output not finite (1, H, W, 1)")
+        diffs.append(float((got[0] - ref[0]).abs().max()))
+    launches = dict(_build.launch_counts)
+    err = max(diffs)
+    emit({"phase": "export", "artifact": label, "model": model, "height": H, "width": W,
+          "export_s": export_s, "save_s": save_s, "load_s": load_s,
+          "file_mb": len(blob) / 1e6, "weights_in_file": state is None,
+          "max_abs_disp_diff_vs_live_px": err, "per_request": diffs,
+          "bound_px": EXPORT_DISP_BOUND, "requests": len(imgs), "artifact_ms": art_ms,
+          "live_ms": live_ms, "artifact_median_ms": float(np.median(art_ms)),
+          "live_median_ms": float(np.median(live_ms)), "launches_per_call": counts,
+          "launches": launches})
+    if not err <= EXPORT_DISP_BOUND:
+        raise AssertionError(f"export {label}: max |disp - live| {err} px above "
+                             f"{EXPORT_DISP_BOUND}")
+    return path, launches
+
+
+def _start_load_in_subprocess(path):
+    """Start loading and running the artifact at `path` in a fresh process
+    that imports only s2m2_torch.tools.export (`_finish_load_in_subprocess`
+    waits for it and fails if it loaded any model source)."""
+    code = ("import json, sys, torch\n"
+            "from s2m2_torch.tools.export import load_artifact\n"
+            f"fn = load_artifact({path!r})\n"
+            f"x = torch.zeros((1, {H}, {W}, 3), device='cuda')\n"
+            "d = fn(x, x)[0]\n"
+            "torch.cuda.synchronize()\n"
+            "src = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 's2m2_tpu')"
+            " or m.startswith('s2m2_torch.models'))\n"
+            "print(json.dumps({'shape': list(d.shape), 'finite': bool(torch.isfinite(d)"
+            ".all()), 'model_source': src}))\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    return proc, time.perf_counter()
+
+
+def _finish_load_in_subprocess(started):
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"export: loading in a subprocess failed:\n{err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    emit({"phase": "export_load_subprocess", "seconds": time.perf_counter() - t0, **rec})
+    if rec["shape"] != [1, H, W, 1] or not rec["finite"] or rec["model_source"]:
+        raise AssertionError(f"export: the subprocess load gave {rec}")
+
+
+def phase_export(shapes, pairs, xl_int8_scales):
+    """Phase 10: .pt2 programs exported on the card, saved, loaded and
+    served (see the module docstring). Returns the launches of their
+    requests and of the live models' beside them."""
+    import tempfile
+    import torch
+    from s2m2_torch.config import get_config
+    from s2m2_torch.models import quant
+    from s2m2_torch.models.init import init_params
+    from s2m2_torch.models.s2m2 import S2M2
+    from s2m2_torch.runtime.engine import StereoEngine
+    from s2m2_torch.tools import export as ex
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    launches = Counter()
+    s_call = {k: sum(v.values()) for k, v in shapes.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) S bf16, weights embedded (every parameter cast to bf16)
+        cfg = get_config("S")
+        state = init_params(cfg, seed=0)
+        t0 = time.perf_counter()
+        blob = ex.export_forward(state, cfg, H, W, compute_dtype=bf16)
+        export_s = time.perf_counter() - t0
+        model = S2M2(cfg)
+        model.load_state_dict(state)
+        model = model.to("cuda", bf16).eval()
+        s_path, n = _serve_artifact("S bf16", "S", blob, export_s, tmp,
+                                    _same_casts(model, bf16), None, s_call,
+                                    pairs[:N_EXPORT_REQUESTS["S"]])
+        launches.update(n)
+        del model, blob
+        # the subprocess loads (a) while (b) is exported on this process's
+        # host thread; it ends before (b)'s requests are timed
+        sub = _start_load_in_subprocess(s_path)
+        try:
+            # (b) XL bf16, fused block, weight-free: the state is an argument
+            cfg = get_config("XL")
+            t0 = time.perf_counter()
+            blob = ex.export_forward_with_weights(cfg, H, W, compute_dtype=bf16,
+                                                  fused_block=True)
+            export_s = time.perf_counter() - t0
+            model = S2M2(cfg, fused_block=True)
+            model.load_state_dict(init_params(cfg, seed=0))
+            model = model.to("cuda", bf16).eval()
+        except BaseException:
+            sub[0].kill()
+            sub[0].wait()
+            raise
+        _finish_load_in_subprocess(sub)
+        _, n = _serve_artifact("XL bf16 fused weight-free", "XL", blob, export_s, tmp,
+                               _same_casts(model, bf16), model.state_dict(),
+                               XL_LAUNCHES[True], pairs[:N_EXPORT_REQUESTS["XL"]])
+        launches.update(n)
+        del model, blob
+        torch.cuda.empty_cache()
+
+        # (c) XL int8: phase 7's calibration (its scales) on phase 7's engine
+        eng = StereoEngine("XL", precision="int8", seed=0)
+        np.save(os.path.join(tmp, "xl_int8.npy"), xl_int8_scales)
+        eng.load_calibration(os.path.join(tmp, "xl_int8.npy"))
+        live = _same_casts(eng._forward, eng.compute_dtype)
+        live(*(torch.from_numpy(x[None]).cuda() for x in pairs[0]))
+        log = quant.last_log()
+        int8_call = {**XL_LAUNCHES[False],
+                     "int8_quantize_pack": sum(r["kind"] == "pack" for r in log),
+                     "int8_gemm": sum(r["kind"] == "gemm" for r in log)}
+        t0 = time.perf_counter()
+        blob = ex.export_quantized_forward(eng, H, W)
+        export_s = time.perf_counter() - t0
+        _, n = _serve_artifact("XL int8", "XL", blob, export_s, tmp, live,
+                               ex.quantized_state(eng), int8_call,
+                               pairs[:N_EXPORT_REQUESTS["XL"]])
+        launches.update(n)
+        del eng, blob
+        torch.cuda.empty_cache()
+    emit({"phase": "export_done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
@@ -1521,8 +1740,9 @@ def kernels_line(results, launches):
     blocks on the same rows); `fp32` holds the same sums in float32. A, B and
     C add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
     block off. max_abs_err is the largest over all of the kernel's
-    comparisons; launches counts every main-path request of phases 5-9 (the
-    training steps, the resumed steps and the calibration tool's runs in 9)."""
+    comparisons; launches counts every main-path request of phases 5-10 (the
+    training steps, the resumed steps and the calibration tool's runs in 9;
+    the programs' requests and the live models' beside them in 10)."""
     out = []
     for name, by_dtype in results.items():
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1590,12 +1810,13 @@ def main():
     launches = phase_main_path(shapes, pairs)
     xl_launches, xl_bf16_disps = phase_xl(pairs[:N_XL_REQUESTS])
     launches.update(xl_launches)
-    int8_launches, xl_int8_log = phase_int8(shapes, pairs, xl_bf16_disps)
+    int8_launches, xl_int8_log, xl_int8_scales = phase_int8(shapes, pairs, xl_bf16_disps)
     launches.update(int8_launches)
     with torch.inference_mode():
         e_entries = phase_int8_sites(xl_int8_log)
     launches.update(phase_calibration(shapes, pairs[0], native_seconds))
     launches.update(phase_train(pairs[0]))
+    launches.update(phase_export(shapes, pairs, xl_int8_scales))
     line = kernels_line(results, launches)
     for name, entry in e_entries.items():
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],

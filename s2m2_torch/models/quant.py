@@ -377,11 +377,12 @@ def _pack(x, inv, geom, rows=None):
     return q
 
 
-def _gemm(a, k, w_q, s_w, s_x, bias, dtype, out=None, m_base=0, conv=None):
-    y = ig.int8_gemm(a, w_q, s_w, s_x, bias, dtype, out=out, m_base=m_base, conv=conv)
+def _gemm(a, k, w_q, s_w, s_x, bias, dtype, out=None, m_base=0, conv=None, nchw=None):
+    y = ig.int8_gemm(a, w_q, s_w, s_x, bias, dtype, out=out, m_base=m_base, conv=conv,
+                     nchw=nchw)
     m = a.shape[0] if conv is None else y.shape[0] * y.shape[2] * y.shape[3]
     _log("gemm", m=m, n=w_q.shape[0], k=k, kp=w_q.shape[1], out=str(dtype),
-         nchw=out is not None, conv=conv, a_shape=tuple(a.shape))
+         nchw=out is not None or nchw is not None, conv=conv, a_shape=tuple(a.shape))
     return y
 
 
@@ -398,16 +399,16 @@ def _int8_product(x, s_x, qw, bias, geom, taps=None):
     kh, kw = geom[:2]
     k = c * kh * kw
     ho, wo = ig.conv_out_hw(h, w, geom)
-    out = torch.empty((b, n, ho, wo), dtype=xf.dtype, device=xf.device)
     if ig.implicit(c):  # one NHWC pack and one implicit GEMM
         if kh * kw > 1 and taps is None:
             taps = conv_taps(w_q, c, kh, kw)
         return _gemm(_pack(x, inv, "nhwc"), k, w_q if kh * kw == 1 else taps, s_w, s_x,
-                     b32, xf.dtype, out=out, conv=geom)
+                     b32, xf.dtype, conv=geom, nchw=(b, ho, wo))
     m = b * ho * wo
     step = max(128, MAX_PACK_BYTES // w_q.shape[1] // 128 * 128)
     if m <= step:
-        return _gemm(_pack(x, inv, geom), k, w_q, s_w, s_x, b32, xf.dtype, out=out)
+        return _gemm(_pack(x, inv, geom), k, w_q, s_w, s_x, b32, xf.dtype, nchw=(b, ho, wo))
+    out = torch.empty((b, n, ho, wo), dtype=xf.dtype, device=xf.device)
     for m0 in range(0, m, step):
         a = _pack(xf, inv, geom, rows=(m0, min(m, m0 + step)))
         _gemm(a, k, w_q, s_w, s_x, b32, xf.dtype, out=out, m_base=m0)

@@ -14,6 +14,10 @@ launches its kernel, and nowhere else, so a run can show which kernels its
 path went through. `entry` and `call` are the one way the wrappers reach a
 C entry point: the signature is set once, and a launch passes the raw
 current stream and switches the device only when it must.
+
+`via_op` and `op` route a wrapper's call through its registered custom op
+(`ops/library.py`) while `torch.export` traces, and for meta tensors: the
+ctypes launch is opaque to tracing, the custom op is not.
 """
 from __future__ import annotations
 
@@ -191,3 +195,17 @@ def call(entry_point, device, what, *args):
             err = fn(*args, stream)
     check(lib, err, what)
     launch_counts[what] += 1
+
+
+def via_op(t) -> bool:
+    """Whether a wrapper's call on `t` goes through its custom op: while
+    torch.export traces (on fake tensors of either device) and for meta
+    tensors, which only the ops' fake implementations take."""
+    return t.device.type == "meta" or torch.compiler.is_exporting()
+
+
+def op(name: str):
+    """The custom op torch.ops.s2m2_torch.<name>, registered by
+    ops/library.py on first use."""
+    from . import library  # noqa: F401  (registers the ops)
+    return getattr(torch.ops.s2m2_torch, name)

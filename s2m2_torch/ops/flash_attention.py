@@ -6,7 +6,10 @@ launch the hand-written kernel of `csrc/scanline_attention.cu`; on a CPU
 tensor they run the plain version beside it. A call on the card that
 autograd records (grad enabled, an input requiring grad) goes through
 `ScanlineAttention` / `ScanlineCrossAttention`, whose backward recomputes
-the plain version (ops/_grad.py); serving keeps the direct launch.
+the plain version (ops/_grad.py); serving keeps the direct launch. While
+torch.export traces, and on meta tensors, the wrappers call the custom ops
+`s2m2_torch::scanline_attention` / `scanline_cross_attention_packed`
+(ops/library.py) instead, whose CUDA kernels are the same launches.
 Numerics follow `s2m2_tpu/ops/flash_attention.py`: float32 scores scaled
 after the dot, float32 softmax, probabilities rounded to v's dtype
 before PV, PV accumulated in float32.
@@ -120,8 +123,15 @@ def _check(tensors):
     for t in tensors:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("attention inputs must share shape, dtype and device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
+
+
+def _check_packed(tensors):
+    _check(tensors)
+    if tensors[0].shape[0] % 2:
+        raise ValueError(f"packed cross attention needs an even batch, "
+                         f"got {tensors[0].shape[0]}")
 
 
 def _entry():
@@ -209,6 +219,8 @@ def scanline_attention(q, k, v):
     """Row-batched attention: q, k, v (B, N, D) -> (B, N, D). On the card a
     call that autograd records goes through `ScanlineAttention`."""
     _check((q, k, v))
+    if _build.via_op(q):
+        return _build.op("scanline_attention")(q, k, v)
     if q.device.type == "cpu":
         return scanline_attention_plain(q, k, v)
     if wants_grad(q, k, v):
@@ -221,7 +233,7 @@ def scanline_cross_attention(qx, kx, vx, qy, ky, vy):
     kx, vx)); all six inputs (B, N, D). On the card the views are packed
     and run through `scanline_cross_attention_packed`, the model's form."""
     _check((qx, kx, vx, qy, ky, vy))
-    if qx.device.type == "cpu":
+    if qx.device.type == "cpu" and not _build.via_op(qx):
         return scanline_cross_attention_plain(qx, kx, vx, qy, ky, vy)
     out = scanline_cross_attention_packed(torch.cat((qx, qy)), torch.cat((kx, ky)),
                                           torch.cat((vx, vy)))
@@ -234,9 +246,9 @@ def scanline_cross_attention_packed(q, k, v):
     (2B, N, D) with view x in rows [0, B); returns (2B, N, D), attn(qx, ky,
     vy) then attn(qy, kx, vx), written by the kernel into one tensor. On the
     card a call that autograd records goes through `ScanlineCrossAttention`."""
-    _check((q, k, v))
-    if q.shape[0] % 2:
-        raise ValueError(f"packed cross attention needs an even batch, got {q.shape[0]}")
+    _check_packed((q, k, v))
+    if _build.via_op(q):
+        return _build.op("scanline_cross_attention_packed")(q, k, v)
     if q.device.type == "cpu":
         return packed_cross_attention_plain(q, k, v)
     if wants_grad(q, k, v):

@@ -7,7 +7,10 @@ kernel of `csrc/fused_basic_attn_block.cu` (a persistent, warp-specialized
 wgmma kernel fed by TMA; float32 by split TF32), with the instance `plan`
 chooses from the table `_INSTANCES`; on a CPU tensor it runs the plain
 version beside it. D has no backward and takes no part in training: on
-the card a call that autograd would record raises (ops/_grad.py). Numerics
+the card a call that autograd would record raises (ops/_grad.py). While
+torch.export traces, and on meta tensors, the wrapper calls the custom op
+`s2m2_torch::fused_basic_attn_block` (ops/library.py) instead, whose CUDA
+kernel is the same launch. Numerics
 follow the TPU kernel's body
 (`s2m2_tpu/ops/fused_block.py:_block_body`), with its rounding points in
 the compute dtype; GELU uses the exact erf.
@@ -216,12 +219,13 @@ def _check(rows, right0, weights, num_heads):
             raise ValueError("rows and weights must share dtype and device")
         if not t.is_contiguous():
             raise ValueError("rows and weights must be contiguous")
-    if rows.device.type not in ("cpu", "cuda"):
+    if rows.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {rows.device}")
     return e
 
 
 def _launch(rows, right0, weights, num_heads, e):
+    """Kernel D's direct launch on CUDA tensors."""
     _, w, c = rows.shape
     pl = plan(w, c, e, num_heads, rows.dtype)
     sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
@@ -246,6 +250,8 @@ def fused_basic_attn_block(rows, right0, weights, num_heads):
     [0, right0) first, then their right-view partners; returns new (R, W, C)
     rows in the same layout."""
     e = _check(rows, right0, weights, num_heads)
+    if _build.via_op(rows):
+        return _build.op("fused_basic_attn_block")(rows, right0, list(weights), num_heads)
     if rows.device.type == "cpu":
         ox, oy = fused_basic_attn_block_plain(rows[:right0], rows[right0:], weights,
                                               num_heads)

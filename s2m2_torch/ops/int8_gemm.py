@@ -304,22 +304,12 @@ def _token_rows(x, name):
                      f"strides {x.stride()}")
 
 
-def quantize_pack(x, inv, conv=None, rows=None, nhwc=False):
-    """Quantize x to int8 for the GEMM.
-
-    Token rows (conv None, nhwc False): x is (..., K); returns (M, Kp) with M
-    the product of the leading dims. nhwc True: x is (B, C, H, W); returns
-    the NHWC int8 tensor (B, H, W, Cp) the conv mode reads. conv = (kh, kw,
-    sh, sw, ph, pw): x is (B, C, H, W); returns the explicit im2col rows (B
-    * Ho * Wo, Kp), or rows[0]:rows[1] of them.
-    """
+def pack_shape(x, conv=None, rows=None, nhwc=False):
+    """The shape of `quantize_pack`'s int8 output, from x's shape, dtype
+    and layout alone; raises on an input the pack kernel does not take.
+    The kernel's launch and the custom op's fake implementation
+    (ops/library.py) both take their output shape from here."""
     name = "int8_quantize_pack"
-    if not _device(x, name):
-        return quantize_pack_plain(x, inv, conv, rows, nhwc)
-    # grad mode checked inline, so that serving (E launches 1,614 times per
-    # XL int8 forward) pays no Python call for the guard
-    if torch.is_grad_enabled():
-        refuse_grad(name, x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)")
     if nhwc or conv is not None:
@@ -327,26 +317,63 @@ def quantize_pack(x, inv, conv=None, rows=None, nhwc=False):
             raise ValueError(f"{name}: a conv input must be a contiguous NCHW tensor")
     if nhwc:
         b, c, h, w = x.shape
-        q = torch.empty((b, h, w, k_padded(c)), dtype=torch.int8, device=x.device)
+        return b, h, w, k_padded(c)
+    if conv is None:
+        _token_rows(x, name)
+        return x.numel() // x.shape[-1], k_padded(x.shape[-1])
+    b, c, h, w = x.shape
+    kh, kw = conv[:2]
+    ho, wo = conv_out_hw(h, w, conv)
+    m0, m1 = rows if rows is not None else (0, b * ho * wo)
+    if not 0 <= m0 < m1 <= b * ho * wo:
+        raise ValueError(f"{name}: rows {rows} outside [0, {b * ho * wo})")
+    return m1 - m0, k_padded(c * kh * kw)
+
+
+def quantize_pack(x, inv, conv=None, rows=None, nhwc=False):
+    """Quantize x to int8 for the GEMM.
+
+    Token rows (conv None, nhwc False): x is (..., K); returns (M, Kp) with M
+    the product of the leading dims. nhwc True: x is (B, C, H, W); returns
+    the NHWC int8 tensor (B, H, W, Cp) the conv mode reads. conv = (kh, kw,
+    sh, sw, ph, pw): x is (B, C, H, W); returns the explicit im2col rows (B
+    * Ho * Wo, Kp), or rows[0]:rows[1] of them. While torch.export traces,
+    and on meta tensors, the call goes through the custom op
+    `s2m2_torch::int8_quantize_pack` (ops/library.py).
+    """
+    name = "int8_quantize_pack"
+    if _build.via_op(x):
+        return _build.op(name)(x, inv, None if conv is None else list(conv),
+                               None if rows is None else list(rows), nhwc)
+    if not _device(x, name):
+        return quantize_pack_plain(x, inv, conv, rows, nhwc)
+    # grad mode checked inline, so that serving (E launches 1,614 times per
+    # XL int8 forward) pays no Python call for the guard
+    if torch.is_grad_enabled():
+        refuse_grad(name, x)
+    return _pack_kernel(x, inv, conv, rows, nhwc)
+
+
+def _pack_kernel(x, inv, conv, rows, nhwc):
+    """The pack kernel's direct launch on a CUDA tensor."""
+    name = "int8_quantize_pack"
+    q = torch.empty(pack_shape(x, conv, rows, nhwc), dtype=torch.int8, device=x.device)
+    if nhwc:
+        b, c, h, w = x.shape
         _build.call(_entry(_NHWC), x.device, name, x.data_ptr(), q.data_ptr(), b, c, h * w,
                     q.shape[3], inv, _DTYPES[x.dtype])
     elif conv is None:
         k = x.shape[-1]
         inner, ld, outer = _token_rows(x, name)
-        m = x.numel() // k
-        q = torch.empty((m, k_padded(k)), dtype=torch.int8, device=x.device)
-        _build.call(_entry(_ROWS), x.device, name, x.data_ptr(), q.data_ptr(), m, k,
+        _build.call(_entry(_ROWS), x.device, name, x.data_ptr(), q.data_ptr(), q.shape[0], k,
                     q.shape[1], inner, ld, outer, inv, _DTYPES[x.dtype])
     else:
         b, c, h, w = x.shape
         kh, kw, sh, sw, ph, pw = conv
         ho, wo = conv_out_hw(h, w, conv)
-        m0, m1 = rows if rows is not None else (0, b * ho * wo)
-        if not 0 <= m0 < m1 <= b * ho * wo:
-            raise ValueError(f"{name}: rows {rows} outside [0, {b * ho * wo})")
-        q = torch.empty((m1 - m0, k_padded(c * kh * kw)), dtype=torch.int8, device=x.device)
+        m0 = 0 if rows is None else rows[0]
         _build.call(_entry(_IM2COL), x.device, name, x.data_ptr(), q.data_ptr(), m0,
-                    m1 - m0, c, h, w, ho, wo, kh, kw, sh, sw, ph, pw, q.shape[1], inv,
+                    q.shape[0], c, h, w, ho, wo, kh, kw, sh, sw, ph, pw, q.shape[1], inv,
                     _DTYPES[x.dtype])
     return q
 
@@ -373,19 +400,15 @@ def _out(out, m, n, out_dtype, dev, m_base, name):
     return out, 0, hw
 
 
-def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
-              out=None, m_base=0, conv=None):
-    """a (M, Kp) int8 rows against w (N, Kp) int8: returns (M, N) in
-    out_dtype (float32, bfloat16, or int32 for the raw accumulators). With
-    `out` an NCHW (B, N, H, W) tensor, writes rows m_base .. m_base + M of
-    it (row m = (b, h * W + w)) and returns it. With conv = (kh, kw, sh, sw,
-    ph, pw), a is the NHWC int8 tensor (B, H, W, Cp) of `quantize_pack(...,
-    nhwc=True)`, w is (N, kh * kw * Cp) in (dy, dx, c) order
-    (`conv_weight_taps`) and the rows are the conv's outputs (b, ho, wo); a
-    1x1 stride-1 conv is the row case on a's pixels."""
+def gemm_geometry(a, w, w_scale, out_dtype, conv, nchw=None):
+    """(a, conv, m, n, output shape) of an `int8_gemm` call, from shapes and
+    dtypes alone: a 1x1 stride-1 conv becomes the row case on a's pixels;
+    m output rows, n columns; the output (m, n), or (B, n, H, W) with nchw
+    = (B, H, W). Raises on a call the GEMM does not take. The kernel's
+    launch and the custom op's fake implementation (ops/library.py) both
+    take their output from here."""
     name = "int8_gemm"
-    cuda = _device(a, name)
-    if conv is not None and tuple(conv[:4]) == (1, 1, 1, 1) and conv[4:] == (0, 0):
+    if conv is not None and tuple(conv[:4]) == (1, 1, 1, 1) and tuple(conv[4:]) == (0, 0):
         if a.dim() != 4:
             raise ValueError(f"{name}: conv mode takes the NHWC (B, H, W, Cp) tensor")
         a, conv = a.reshape(-1, a.shape[3]), None
@@ -394,7 +417,7 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
                 or a.shape[3] % 32:
             raise ValueError(f"{name}: conv mode takes a contiguous NHWC int8 (B, H, W, "
                              f"Cp) tensor with Cp % 32 == 0, got {tuple(a.shape)}")
-        kh, kw, sh, sw, ph, pw = conv
+        kh, kw = conv[:2]
         b, h, wd, cp = a.shape
         ho, wo = conv_out_hw(h, wd, conv)
         m, depth = b * ho * wo, kh * kw * cp
@@ -405,19 +428,72 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
     if a.device != w.device or w.dim() != 2 or w.shape[1] != depth:
         raise ValueError(f"{name}: a {tuple(a.shape)} and w {tuple(w.shape)} do not "
                          "match")
-    if out_dtype not in _OUT_KINDS or (out is not None and out.dtype != out_dtype):
+    if out_dtype not in _OUT_KINDS:
         raise TypeError(f"{name}: output dtype {out_dtype} not supported")
     if (w_scale is None) != (out_dtype == torch.int32):
         raise ValueError(f"{name}: w_scale is required exactly when dequantizing")
     n = w.shape[0]
+    if nchw is None:
+        return a, conv, m, n, (m, n)
+    b, h, wd = nchw
+    if b * h * wd != m:
+        raise ValueError(f"{name}: an NCHW output {tuple(nchw)} does not hold {m} rows")
+    return a, conv, m, n, (b, n, h, wd)
+
+
+def _rows_to_nchw(y, nchw):
+    """(B*H*W, N) rows, row m = (b, h * W + w), as a (B, N, H, W) tensor."""
+    b, h, w = nchw
+    return y.reshape(b, h * w, -1).transpose(1, 2).reshape(b, -1, h, w).contiguous()
+
+
+def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
+              out=None, m_base=0, conv=None, nchw=None):
+    """a (M, Kp) int8 rows against w (N, Kp) int8: returns (M, N) in
+    out_dtype (float32, bfloat16, or int32 for the raw accumulators). With
+    nchw = (B, H, W), B * H * W = M, returns the NCHW (B, N, H, W) output
+    (row m = (b, h * W + w)); with `out` an NCHW (B, N, H, W) tensor,
+    writes rows m_base .. m_base + M of it and returns it. With conv = (kh,
+    kw, sh, sw, ph, pw), a is the NHWC int8 tensor (B, H, W, Cp) of
+    `quantize_pack(..., nhwc=True)`, w is (N, kh * kw * Cp) in (dy, dx, c)
+    order (`conv_weight_taps`) and the rows are the conv's outputs (b, ho,
+    wo); a 1x1 stride-1 conv is the row case on a's pixels. While
+    torch.export traces, and on meta tensors, the call goes through the
+    functional custom op `s2m2_torch::int8_gemm` (ops/library.py), and a
+    call with `out` copies the rows the op returns into it."""
+    name = "int8_gemm"
+    if out is not None and nchw is not None:
+        raise ValueError(f"{name}: pass out or nchw, not both")
+    if _build.via_op(a):
+        gemm = _build.op(name)
+        geom = None if conv is None else list(conv)
+        if out is None:
+            return gemm(a, w, w_scale, float(s_x), bias, out_dtype, geom,
+                        None if nchw is None else list(nchw))
+        _write_nchw(out, gemm(a, w, w_scale, float(s_x), bias, out_dtype, geom, None), m_base)
+        return out
+    cuda = _device(a, name)
+    a, conv, m, n, _ = gemm_geometry(a, w, w_scale, out_dtype, conv, nchw)
+    if out is not None and out.dtype != out_dtype:
+        raise TypeError(f"{name}: output dtype {out_dtype} not supported")
     if not cuda:
         y = int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv)
         if out is None:
-            return y
+            return y if nchw is None else _rows_to_nchw(y, nchw)
         _write_nchw(out, y, m_base)
         return out
     if torch.is_grad_enabled():
         refuse_grad(name, *[t for t in (w_scale, bias) if t is not None])
+    return _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw)
+
+
+def _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw):
+    """The GEMM kernel's direct launch on CUDA tensors, after
+    `gemm_geometry` (a, conv, m, n as it returns them); into `out`, a new
+    NCHW (B, n, H, W) output with nchw = (B, H, W), else new (m, n) rows."""
+    name = "int8_gemm"
+    if nchw is not None:
+        out = torch.empty((nchw[0], n, nchw[1], nchw[2]), dtype=out_dtype, device=a.device)
     if conv is None:
         _check_operand(a, name, "a", torch.int8, 32)
     elif a.data_ptr() % 16:
@@ -433,12 +509,16 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
     p = plan("int8", m, n, _sms(a.device.index), conv is not None and not tiled)
     scale = None if w_scale is None else w_scale.data_ptr()
     bias_p = None if bias is None else bias.data_ptr()
+    depth = w.shape[1]
     if conv is None:
         _build.call(_entry(_GEMM), a.device, name, a.data_ptr(), a.stride(0), w.data_ptr(),
                     w.stride(0), m, n, depth, _OPS["int8"], scale, float(s_x), bias_p,
                     out.data_ptr(), ldc, hw, m_base, _OUT_KINDS[out_dtype], p.bn, p.wgs,
                     p.stages)
     else:
+        b, h, wd, cp = a.shape
+        ho, wo = conv_out_hw(h, wd, conv)
+        kh, kw, sh, sw, ph, pw = conv
         _build.call(_entry(_CONV), a.device, name, a.data_ptr(), b, h, wd, cp, ho, wo, kh,
                     kw, sh, sw, ph, pw, w.data_ptr(), w.stride(0), n, scale, float(s_x),
                     bias_p, out.data_ptr(), ldc, hw, m_base, _OUT_KINDS[out_dtype], int(tiled),

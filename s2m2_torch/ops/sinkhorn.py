@@ -12,7 +12,9 @@ On a CUDA tensor the wrapper launches `csrc/sinkhorn_ot.cu` by the route
 `plan(W, C, dtype, positivity)` chooses; on a CPU tensor it runs the plain
 version beside it; a call on the card that autograd records goes through
 `FusedCorrelationOT`, whose backward recomputes the plain version
-(ops/_grad.py). The resident route keeps the whole float32 row in the
+(ops/_grad.py). While torch.export traces, and on meta tensors, the
+wrapper calls the custom op `s2m2_torch::fused_correlation_ot`
+(ops/library.py) instead, whose CUDA kernel is the same launch. The resident route keeps the whole float32 row in the
 shared memory of a thread-block cluster of up to 8 CTAs (`cluster`) and
 needs no workspace; the streamed route, for rows too wide for a cluster,
 keeps it in a (B*H, W+1, W+1) float32 workspace the wrapper allocates.
@@ -217,15 +219,21 @@ class FusedCorrelationOT(torch.autograd.Function):
         return g0, g1, None, None
 
 
+def check(f0, f1):
+    if f0.dim() != 4 or f0.shape != f1.shape or f0.dtype != f1.dtype \
+            or f0.device != f1.device:
+        raise ValueError("f0 and f1 must be (B, H, W, C) of one shape, dtype "
+                         "and device")
+
+
 def fused_correlation_ot(f0, f1, ot_iter=3, use_positivity=True):
     """f0, f1: (B, H, W, C) normalized left/right features. Returns
     (prob, cv), each (B, H, W, W) in f0's dtype: the masked transport
     probabilities and the raw (unmasked) correlation volume. On the card a
     call that autograd records goes through `FusedCorrelationOT`."""
-    if f0.dim() != 4 or f0.shape != f1.shape or f0.dtype != f1.dtype \
-            or f0.device != f1.device:
-        raise ValueError("f0 and f1 must be (B, H, W, C) of one shape, dtype "
-                         "and device")
+    check(f0, f1)
+    if _build.via_op(f0):
+        return _build.op("fused_correlation_ot")(f0, f1, ot_iter, use_positivity)
     if f0.device.type == "cpu":
         return fused_correlation_ot_plain(f0, f1, ot_iter, use_positivity)
     if f0.device.type != "cuda":

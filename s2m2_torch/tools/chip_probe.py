@@ -8,7 +8,7 @@
     python3 s2m2_torch/tools/chip_probe.py drift [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py ot [--label NAME] [--trace] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
-        --precision bf16,int8a,int8r --n 16 [--label NAME] [--out FILE]
+        --precision bf16,int8a,int8r --n 16 [--label NAME] [--via-ops] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py calib [--n 20] [--out FILE]
 
 `fill`: kernel A in bf16 at head dim 32 with N = 1216 (S's 2D blocks) and at
@@ -26,7 +26,10 @@ measures the dispatch, not the kernel.
 `dispatch`: the host time of each step of kernel A's wrapper at one small
 2D-block shape, beside the whole wrapper and SDPA's call; and of kernel
 E's two wrappers (`quantize_pack`, `int8_gemm`) on token rows, beside
-`torch._int_mm` on the same rows.
+`torch._int_mm` on the same rows. Beside each of A's and E's wrappers, the
+same call through its custom op (`torch.ops.s2m2_torch.*`,
+ops/library.py): what serving would pay a launch for going through the
+dispatcher, as exported programs do.
 
 `int8`: kernel E at every distinct call one XL int8 1216x1024 forward
 makes. The forward runs once with E's two wrappers wrapped so that the
@@ -85,6 +88,10 @@ host-bound request time hides). It uses only the engine's public API, so
 it also runs against an older
 checkout of the package:
 `PYTHONPATH=<checkout> python3 s2m2_torch/tools/chip_probe.py requests ...`.
+`--via-ops` routes every
+kernel call of the engines through its custom op (the wrappers'
+`_build.via_op` made true), so serving through the dispatcher is timed
+against the direct launches; an older checkout has no such route.
 
 `calib`: where the time of an online-calibration candidate goes, on
 chip_smoke.py phase 8's engine (S bf16, seed 0), raw pair (phase 5's first,
@@ -329,6 +336,7 @@ def cmd_dispatch(args):
         "ctypes launch": lambda: _build.check(lib, fn(*ptrs, 8, 1216, 32, 1, p.dp, p.bq,
                                                       p.smem, 1, stream), "probe"),
         "ctypes argtypes (16)": lambda: setattr(spare, "argtypes", [ctypes.c_void_p] * 16),
+        "a custom op": lambda: torch.ops.s2m2_torch.scanline_attention(q, k, v),
         **_e_dispatch(),
     }
     emit({"probe": "dispatch", "shape": [8, 1216, 32], "dtype": "bfloat16",
@@ -340,6 +348,8 @@ def _e_dispatch():
     rows against a (64, 96) int8 weight, beside torch._int_mm on the rows."""
     import torch
     from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.ops import library  # noqa: F401  (registers the custom ops)
+    ops = torch.ops.s2m2_torch
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((1216, 96), generator=g, device="cuda").bfloat16()
     w = torch.randint(-127, 128, (64, 96), generator=g, device="cuda", dtype=torch.int8)
@@ -348,7 +358,10 @@ def _e_dispatch():
     a = ig.quantize_pack(x, 20.0)
     wt = w.t()
     return {"e pack wrapper": lambda: ig.quantize_pack(x, 20.0),
+            "e pack custom op": lambda: ops.int8_quantize_pack(x, 20.0, None, None, False),
             "e gemm wrapper": lambda: ig.int8_gemm(a, w, s_w, 0.05, bias, torch.bfloat16),
+            "e gemm custom op": lambda: ops.int8_gemm(a, w, s_w, 0.05, bias, torch.bfloat16,
+                                                      None, None),
             "int_mm": lambda: torch._int_mm(a, wt)}
 
 
@@ -506,6 +519,9 @@ def cmd_requests(args):
     from s2m2_torch.ops import _build
     from s2m2_torch.runtime.engine import StereoEngine
     _build.build_all()
+    if args.via_ops:
+        from s2m2_torch.ops import library  # noqa: F401  (registers the custom ops)
+        _build.via_op = lambda t: True
     rng = np.random.default_rng(0)
     pairs = [_pair(rng, 16 + 8 * (i % 8)) for i in range(8)]
     for precision in args.precision.split(","):
@@ -521,7 +537,8 @@ def cmd_requests(args):
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
         emit({"probe": "requests", "label": args.label, "package": s2m2_torch.__file__,
-              "model": args.model, "precision": precision, "requests": args.n,
+              "via_ops": args.via_ops, "model": args.model, "precision": precision,
+              "requests": args.n,
               "warmup_s": warm_s, "ms_per_request": ms, "median_ms": float(np.median(ms)),
               "mean_ms": float(np.mean(ms)),
               "device_busy_ms": busy if busy > 0 else "not measured"}, args.out)
@@ -836,6 +853,8 @@ def main():
     req.add_argument("--precision", default="bf16,int8a,int8r")
     req.add_argument("--n", type=int, default=16)
     req.add_argument("--label", default="")
+    req.add_argument("--via-ops", action="store_true",
+                     help="every kernel call through its custom op (this checkout only)")
     req.add_argument("--out")
     cal = sub.add_parser("calib")
     cal.add_argument("--n", type=int, default=20)

@@ -170,8 +170,9 @@ def test_int8_wrappers_take_the_plain_version_on_cpu_and_check_inputs():
         ig.int8_gemm(a, w[:, :32], out_dtype=torch.int32)  # K differs
     with pytest.raises(ValueError):
         ig.int8_gemm(a, w)  # dequantizing needs w_scale
-    with pytest.raises(ValueError):
-        ig.quantize_pack(x.to("meta"), 20.0)
+    # meta tensors go to the custom op's fake implementation: shapes only
+    m = ig.quantize_pack(x.to("meta"), 20.0)
+    assert m.device.type == "meta" and m.shape == (10, 64) and m.dtype == torch.int8
     with pytest.raises(TypeError):
         ig.probe_chain(x.bfloat16(), torch.zeros(40, 40), "int8")  # int8 kind, float w
 
@@ -400,3 +401,92 @@ def test_serving_makes_no_function_call_on_card(cuda, monkeypatch):
     for name, p in mrt.named_parameters():
         if name.endswith(("q.weight", "k.weight", "v.weight")):
             assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
+
+
+def _custom_op_cases(dev, dtype):
+    """(launch counter, custom-op call, direct wrapper call) for each op of
+    ops/library.py at small shapes: A, B (packed), C, D, E's three packs
+    and its GEMM on rows, into NCHW, as an implicit 3x3 and a 1x1 conv."""
+    from s2m2_torch.ops import int8_gemm as ig
+    from s2m2_torch.ops import library  # noqa: F401  (registers the ops)
+    ops = torch.ops.s2m2_torch
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    q, k, v = randn(6, 48, 32), randn(6, 48, 32), randn(6, 48, 32)
+    f0, f1 = randn(1, 6, 40, 24), randn(1, 6, 40, 24)
+    c, heads, pairs = 48, 4, 2
+    blk_w = [t.detach().to(dev, dtype) for t in _seeded_block(c, heads).fused_weights()]
+    rows = randn(2 * pairs, 33, c)
+    x_rows, x_conv, x_nhwc = randn(2, 5, 40), randn(2, 6, 9, 7), randn(2, 48, 9, 13)
+    geom = (3, 3, 2, 2, 1, 1)
+    a_rows = ig.quantize_pack(x_rows, 20.0)
+    a_nhwc = ig.quantize_pack(x_nhwc, 20.0, nhwc=True)
+    w_rows, w_taps, w_1x1 = int8(24, 64), int8(24, 9 * 64), int8(24, 64)
+    s_w = torch.rand((24,), generator=g, device=dev) * 1e-3
+    bias = torch.randn((24,), generator=g, device=dev)
+    conv3 = [3, 3, 1, 1, 1, 1]
+    return [
+        ("scanline_attention", lambda: ops.scanline_attention(q, k, v),
+         lambda: fa.scanline_attention(q, k, v)),
+        ("scanline_cross_attention", lambda: ops.scanline_cross_attention_packed(q, k, v),
+         lambda: fa.scanline_cross_attention_packed(q, k, v)),
+        ("fused_correlation_ot", lambda: ops.fused_correlation_ot(f0, f1, 3, True),
+         lambda: sinkhorn.fused_correlation_ot(f0, f1, 3, True)),
+        ("fused_basic_attn_block", lambda: ops.fused_basic_attn_block(rows, pairs, blk_w, heads),
+         lambda: fb.fused_basic_attn_block(rows, pairs, blk_w, heads)),
+        ("int8_quantize_pack", lambda: ops.int8_quantize_pack(x_rows, 20.0, None, None, False),
+         lambda: ig.quantize_pack(x_rows, 20.0)),
+        ("int8_quantize_pack", lambda: ops.int8_quantize_pack(x_conv, 20.0, list(geom), [3, 30],
+                                                              False),
+         lambda: ig.quantize_pack(x_conv, 20.0, conv=geom, rows=(3, 30))),
+        ("int8_quantize_pack", lambda: ops.int8_quantize_pack(x_nhwc, 20.0, None, None, True),
+         lambda: ig.quantize_pack(x_nhwc, 20.0, nhwc=True)),
+        ("int8_gemm", lambda: ops.int8_gemm(a_rows, w_rows, s_w, 0.05, bias, dtype, None, None),
+         lambda: ig.int8_gemm(a_rows, w_rows, s_w, 0.05, bias, dtype)),
+        ("int8_gemm", lambda: ops.int8_gemm(a_rows, w_rows, None, 1.0, None, torch.int32, None,
+                                            None),
+         lambda: ig.int8_gemm(a_rows, w_rows, out_dtype=torch.int32)),
+        ("int8_gemm", lambda: ops.int8_gemm(a_rows, w_rows, s_w, 0.05, bias, dtype, None,
+                                            [2, 1, 5]),
+         lambda: ig.int8_gemm(a_rows, w_rows, s_w, 0.05, bias, dtype, nchw=(2, 1, 5))),
+        ("int8_gemm", lambda: ops.int8_gemm(a_nhwc, w_taps, s_w, 0.05, bias, dtype, conv3,
+                                            [2, 9, 13]),
+         lambda: ig.int8_gemm(a_nhwc, w_taps, s_w, 0.05, bias, dtype, conv=conv3,
+                              nchw=(2, 9, 13))),
+        ("int8_gemm", lambda: ops.int8_gemm(a_nhwc, w_1x1, s_w, 0.05, bias, dtype,
+                                            [1, 1, 1, 1, 0, 0], [2, 9, 13]),
+         lambda: ig.int8_gemm(a_nhwc, w_1x1, s_w, 0.05, bias, dtype, conv=(1, 1, 1, 1, 0, 0),
+                              nchw=(2, 9, 13))),
+    ]
+
+
+def _seeded_block(c, heads):
+    from s2m2_torch.models.attention import BasicAttnBlock
+    from s2m2_torch.models.init import _basic_attn_block, _Rng
+    from s2m2_torch.tools.convert import flatten, from_jax
+    blk = BasicAttnBlock(c, heads)
+    blk.load_state_dict(from_jax(flatten(_basic_attn_block(_Rng(0), c, heads, 1))))
+    return blk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_direct_launches_on_card(cuda, dtype):
+    """Each custom op's CUDA kernel (what an exported program launches)
+    gives the direct wrapper's result to the bit, with one launch a call."""
+    with torch.inference_mode():
+        for counter, op_call, direct_call in _custom_op_cases(cuda, dtype):
+            before = _build.launch_counts[counter]
+            got = op_call()
+            torch.cuda.synchronize()
+            assert _build.launch_counts[counter] == before + 1, counter
+            want = direct_call()
+            got, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, want))
+            for a, b in zip(got, want, strict=True):
+                assert a.shape == b.shape and a.dtype == b.dtype and a.stride() == b.stride()
+                assert torch.equal(a, b), counter
