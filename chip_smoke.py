@@ -104,6 +104,24 @@ non-zero:
    imports only s2m2_torch.tools.export, which must load no jax, s2m2_tpu
    or s2m2_torch.models module (it runs while (b) is exported and ends
    before (b)'s requests).
+11. entry points: the five demo CLIs as a user runs them, each in its own
+   process on the card at its defaults, on the synthesized inputs of
+   `s2m2_torch/demo/_scenes.py` (1216x1024): `visualize_2d_simple` (S bf16,
+   run(n_repeat=5)), `visualize_3d_middlebury` (L), `visualize_3d_booster`
+   (XL, 2432x2048 halved), `online_calibration --method cem` (S) and
+   `train_demo` (the tiny config); then `python -m
+   s2m2_torch.tools.train_convergence --bf16` for CONVERGENCE_STEPS steps,
+   held-out evaluation at step 0 and at the end (fails on a non-finite
+   loss or a final held-out EPE or bad-2.0 above its bound). Each process
+   runs through this script's `--cli` wrapper, which counts the model's
+   forwards; the phase fails if a process exits non-zero, loaded cv2, PIL,
+   jax or s2m2_tpu, or launched A, B and C other than its model's counts
+   a forward (S 20/10/1, XL unfused 44/30/1, L's and the tiny configs' from
+   their shapes) or D or E at all. One line per process: wall seconds, the
+   ms it printed (the 2D demo's beside phase 5's S bf16 median, the
+   Booster demo's beside phase 6's XL bf16 unfused median), its output's
+   size (panel bytes, PLY points), the convergence run's EPE, bad-2.0 and
+   ms per step.
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -120,6 +138,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -552,16 +571,6 @@ def phase_golden(fused_block):
             raise AssertionError(f"golden parity failed on {path}: {errs}")
 
 
-def _stereo_pair(rng, h, w, disp):
-    """A smooth random texture and its copy shifted left by `disp` pixels
-    (left pixel x matches right pixel x - disp), plus noise, in [0, 255]."""
-    base = rng.uniform(0, 255, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32)
-    left = np.repeat(np.repeat(base, 8, 0), 8, 1)[:h, :w]
-    left = left + rng.normal(0, 8, left.shape).astype(np.float32)
-    right = np.roll(left, -disp, axis=1) + rng.normal(0, 2, left.shape).astype(np.float32)
-    return np.clip(left, 0, 255), np.clip(right, 0, 255)
-
-
 FAMILIES = (("fused block (ours)", ("fused_block_kernel",)),
             ("ours: scanline attention", ("scanline_attention_kernel",)),
             ("ours: correlation + Sinkhorn", ("corr_ot_kernel",)),
@@ -647,12 +656,12 @@ def phase_main_path(shapes, pairs):
     from s2m2_torch.runtime.engine import StereoEngine
 
     per_forward = {k: sum(v.values()) for k, v in shapes.items()}
-    launches = Counter()
+    launches, medians = Counter(), {}
     for precision in ("fp32", "bf16"):
         eng = StereoEngine("S", precision=precision, seed=0)
         ms, _, counts, peak = serve(eng, f"S {precision}", pairs, per_forward)
         launches.update(counts)
-        med = float(np.median(ms))
+        med = medians[f"S {precision}"] = float(np.median(ms))
         emit(profile_forward(eng, precision, *pairs[0]))
         emit({"phase": "main_path", "model": "S", "precision": precision,
               "height": H, "width": W, "requests": len(pairs), "ms_per_frame": ms,
@@ -661,12 +670,13 @@ def phase_main_path(shapes, pairs):
               "benchmark": eng.benchmark(H, W, n_warmup=1, n_iter=5)})
         del eng
         torch.cuda.empty_cache()
-    return launches
+    return launches, medians
 
 
-def phase_xl(pairs):
+def phase_xl(pairs, medians):
     """XL at 1216x1024: bf16 fused, bf16 unfused on the same weights, fp32
-    fused; returns the launches of the three runs together."""
+    fused; returns the launches of the three runs together and the bf16
+    unfused disparities, and adds each run's median ms to `medians`."""
     import torch
     from s2m2_torch.config import get_config
     from s2m2_torch.runtime.engine import StereoEngine
@@ -685,7 +695,7 @@ def phase_xl(pairs):
         label = f"XL {precision} fused_block={fused}"
         ms, disps[(precision, fused)], counts, peak = serve(eng, label, pairs, per_forward)
         launches.update(counts)
-        med = float(np.median(ms))
+        med = medians[label] = float(np.median(ms))
         emit({**profile_forward(eng, precision, *pairs[0]), "model": "XL",
               "fused_block": fused})
         emit({"phase": "xl_path", "model": "XL", "precision": precision,
@@ -992,21 +1002,6 @@ def phase_int8_sites(log):
     return entries
 
 
-def synthetic_calibration():
-    """A sensor calibration at 1216x1024 (W x H): fx = fy ~ 1000, principal
-    points near the centre and apart, 5 distortion coefficients a camera,
-    a -120 mm baseline and a stereo rotation of a few mrad."""
-    from s2m2_torch.utils.calib import euler_to_rotation_matrix
-    return {
-        "left": {"fx": 1000.0, "fy": 1000.0, "cx": 611.3, "cy": 509.2,
-                 "distortion": np.array([-0.05, 0.012, 0.0004, -0.0003, 0.001])},
-        "right": {"fx": 1001.5, "fy": 1001.5, "cx": 604.8, "cy": 514.6,
-                  "distortion": np.array([-0.048, 0.011, -0.0002, 0.0005, 0.0])},
-        "stereo_extrinsic": {"rotation": euler_to_rotation_matrix(0.002, -0.003, 0.0015),
-                             "translation": np.array([-120.0, 0.3, -0.5])},
-    }
-
-
 def phase_native(raw, calib, native_seconds):
     """The native host library against its numpy versions at the path's
     sizes: both raw images remapped with the port's maps (<= 1 grey level),
@@ -1081,6 +1076,7 @@ def phase_calibration(shapes, pair, native_seconds):
     import torch
     from s2m2_torch.calibration.cem import cem_calibration
     from s2m2_torch.calibration.grad_descent import gradient_descent_calibration
+    from s2m2_torch.demo._scenes import synthetic_calibration
     from s2m2_torch.ops import _build
     from s2m2_torch.runtime.engine import StereoEngine
     from s2m2_torch.tools import bench
@@ -1711,6 +1707,169 @@ def phase_export(shapes, pairs, xl_int8_scales):
     return launches
 
 
+# phase 11: the user's entry points, each in its own process as a user runs
+# it. The convergence run takes 300 steps (600 take about 190 s on an H100
+# at ~290 ms a step); its final held-out EPE bound is a full 300-step bf16
+# run's on an H100 (0.891 px, PERF.md section 6) plus 0.15 px, its bad-2.0
+# bound the 600-step target's
+CONVERGENCE_STEPS = 300
+CONVERGENCE_EPE, CONVERGENCE_BAD2 = 0.891 + 0.15, 0.15
+ABC = ("scanline_attention", "scanline_cross_attention", "fused_correlation_ot")
+FORBIDDEN_MODULES = ("cv2", "PIL", "jax", "s2m2_tpu")
+
+
+def wrap_cli(module, argv):
+    """`chip_smoke.py --cli MODULE ARGS...`: run `python -m MODULE ARGS` in
+    this process with every forward of the port's model counted, then print,
+    as the last line, one JSON object: the exit code, wall seconds, the
+    forwards, the kernels' launch counts and the loaded modules of
+    FORBIDDEN_MODULES. Returns the module's exit code."""
+    import runpy
+    sys.path.insert(0, str(ROOT))
+    from s2m2_torch.models.s2m2 import S2M2
+    from s2m2_torch.ops import _build
+    forwards = [0]
+    forward = S2M2.forward
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return forward(self, *args, **kwargs)
+
+    S2M2.forward = counted
+    sys.argv = [module, *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code if isinstance(exc.code, int) else int(exc.code is not None)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN_MODULES)
+    print(json.dumps({"module": module, "rc": rc, "wall_s": time.perf_counter() - t0,
+                      "forwards": forwards[0], "launches": dict(_build.launch_counts),
+                      "forbidden_modules": loaded}), flush=True)
+    return rc
+
+
+def _run_cli(label, module, argv, per_forward, timeout=600):
+    """Run one entry point through `wrap_cli` in a subprocess on the card;
+    check its exit code, that it loaded none of FORBIDDEN_MODULES, and that
+    A, B and C launched `per_forward` times a forward (D and E never).
+    Returns (its standard output, the wrapper's record)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cli", module,
+                           *argv], capture_output=True, text=True, timeout=timeout,
+                          env=env, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        rec = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise AssertionError(f"{label}: no wrapper record (rc {proc.returncode}): "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}") from None
+    counts = rec["launches"]
+    n = rec["forwards"]
+    per = {k: counts[k] / n if n else None for k in ABC}
+    bad = [k for k in ABC if counts[k] != per_forward[k] * n or n == 0]
+    bad += [k for k, v in counts.items() if k not in ABC and v]
+    if rec["rc"] != 0 or rec["forbidden_modules"] or bad:
+        raise AssertionError(f"{label}: rc {rec['rc']}, loaded {rec['forbidden_modules']}, "
+                             f"launches {counts} over {n} forwards (expected "
+                             f"{per_forward} each): {proc.stderr[-2000:]}")
+    rec["launches_per_forward"] = per
+    rec["process_s"] = time.perf_counter() - t0
+    return proc.stdout, rec
+
+
+def _printed(pattern, text, cast=float):
+    """The last match of `pattern`'s group in `text`, cast, or None."""
+    found = re.findall(pattern, text)
+    return cast(found[-1]) if found else None
+
+
+def phase_entry_points(medians):
+    """Phase 11: the five demo CLIs at their defaults (synthesized inputs),
+    then the bf16 convergence run, each in a subprocess through `wrap_cli`.
+    Returns the launches of their runs."""
+    import tempfile
+    from s2m2_torch.config import ModelConfig, get_config
+    from s2m2_torch.utils.png import read_png
+
+    def counts(cfg):
+        return {k: sum(v.values()) for k, v in main_path_shapes(cfg, H, W).items()}
+
+    t_phase = time.perf_counter()
+    per = {"S": counts(get_config("S")), "L": counts(get_config("L")),
+           "XL": XL_LAUNCHES[False],
+           "tiny": counts(ModelConfig(feature_channels=32, num_transformer=1, refine_iter=1)),
+           "convergence": counts(ModelConfig(feature_channels=32, num_transformer=1,
+                                             refine_iter=2))}
+    launches = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {k: os.path.join(tmp, k) for k in ("2d.png", "middlebury.ply", "booster.ply",
+                                                 "convergence.json")}
+        runs = (
+            ("2d", "visualize_2d_simple", ["--out", out["2d.png"]], "S"),
+            ("middlebury", "visualize_3d_middlebury", ["--out", out["middlebury.ply"]], "L"),
+            ("booster", "visualize_3d_booster", ["--out", out["booster.ply"]], "XL"),
+            ("online_calibration", "online_calibration", ["--method", "cem"], "S"),
+            ("train_demo", "train_demo", [], "tiny"),
+            ("convergence", None, ["--bf16", "--steps", str(CONVERGENCE_STEPS),
+                                   "--eval-every", str(CONVERGENCE_STEPS),
+                                   "--out", out["convergence.json"]], "convergence"))
+        for label, name, argv, model in runs:
+            module = (f"s2m2_torch.demo.{name}" if name
+                      else "s2m2_torch.tools.train_convergence")
+            stdout, rec = _run_cli(label, module, argv, per[model])
+            launches.update(rec["launches"])
+            line = {"phase": "entry_point", "cli": label, "module": module, "argv": argv,
+                    "model": model, "process_s": rec["process_s"], "wall_s": rec["wall_s"],
+                    "forwards": rec["forwards"], "launches": rec["launches"],
+                    "launches_per_forward": rec["launches_per_forward"],
+                    "ms_printed": _printed(r"runtime:? ([0-9.]+) ms", stdout)}
+            problem = None
+            if label == "2d":
+                panel = read_png(out["2d.png"])
+                line.update(panel_bytes=os.path.getsize(out["2d.png"]),
+                            panel_shape=list(panel.shape),
+                            phase5_S_bf16_median_ms=medians["S bf16"])
+                if panel.shape != (H, 3 * W, 3):
+                    problem = f"panel {panel.shape}"
+            elif label in ("middlebury", "booster"):
+                line["ply_points"] = _printed(r"saved (\d+) points", stdout, int)
+                with open(out[f"{label}.ply"], "rb") as f:
+                    if f.read(3) != b"ply" or line["ply_points"] is None:
+                        problem = "no point cloud"
+                if label == "booster":
+                    line["phase6_XL_bf16_unfused_median_ms"] = \
+                        medians["XL bf16 fused_block=False"]
+            elif label == "online_calibration":
+                line["final_confidence"] = _printed(r"final_confidence: ([-+0-9.]+)", stdout)
+                if line["final_confidence"] is None:
+                    problem = "no result printed"
+            elif label == "train_demo":
+                line["losses"] = [float(x) for x in re.findall(r"loss=(\S+) epe=", stdout)]
+                if not line["losses"] or not np.isfinite(line["losses"]).all():
+                    problem = f"losses {line['losses']}"
+            else:
+                with open(out["convergence.json"]) as f:
+                    res = json.load(f)["bf16"]
+                line.update({k: res[k] for k in (
+                    "init_epe", "final_epe", "init_bad2", "final_bad2", "all_losses_finite",
+                    "ms_per_step_median", "ms_per_step_mean", "history")})
+                line.update(train_wall_s=res["wall_s"], bounds={
+                    "final_epe": CONVERGENCE_EPE, "final_bad2": CONVERGENCE_BAD2})
+                if not (res["all_losses_finite"] and res["final_epe"] <= CONVERGENCE_EPE
+                        and res["final_bad2"] <= CONVERGENCE_BAD2):
+                    problem = (f"final EPE {res['final_epe']} px, bad-2.0 {res['final_bad2']}, "
+                               f"losses finite {res['all_losses_finite']}")
+            line["ok"] = problem is None
+            emit(line)
+            if problem:
+                raise AssertionError(f"entry point {label}: {problem}")
+    emit({"phase": "entry_points_done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
@@ -1740,9 +1899,10 @@ def kernels_line(results, launches):
     blocks on the same rows); `fp32` holds the same sums in float32. A, B and
     C add `xl` (and `xl_fp32`): the sums over an XL forward with the fused
     block off. max_abs_err is the largest over all of the kernel's
-    comparisons; launches counts every main-path request of phases 5-10 (the
+    comparisons; launches counts every main-path request of phases 5-11 (the
     training steps, the resumed steps and the calibration tool's runs in 9;
-    the programs' requests and the live models' beside them in 10)."""
+    the programs' requests and the live models' beside them in 10; the
+    entry points' processes in 11)."""
     out = []
     for name, by_dtype in results.items():
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1781,6 +1941,7 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     from s2m2_torch.config import get_config
+    from s2m2_torch.demo._scenes import stereo_pair
 
     # float32 comparisons are exact-float32 on both sides: no TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -1806,9 +1967,9 @@ def main():
     phase_golden(fused_block=True)
     phase_golden_int8()
     rng = np.random.default_rng(0)
-    pairs = [_stereo_pair(rng, H, W, 16 + 8 * i) for i in range(N_REQUESTS)]
-    launches = phase_main_path(shapes, pairs)
-    xl_launches, xl_bf16_disps = phase_xl(pairs[:N_XL_REQUESTS])
+    pairs = [stereo_pair(rng, H, W, 16 + 8 * i) for i in range(N_REQUESTS)]
+    launches, medians = phase_main_path(shapes, pairs)
+    xl_launches, xl_bf16_disps = phase_xl(pairs[:N_XL_REQUESTS], medians)
     launches.update(xl_launches)
     int8_launches, xl_int8_log, xl_int8_scales = phase_int8(shapes, pairs, xl_bf16_disps)
     launches.update(int8_launches)
@@ -1817,6 +1978,7 @@ def main():
     launches.update(phase_calibration(shapes, pairs[0], native_seconds))
     launches.update(phase_train(pairs[0]))
     launches.update(phase_export(shapes, pairs, xl_int8_scales))
+    launches.update(phase_entry_points(medians))
     line = kernels_line(results, launches)
     for name, entry in e_entries.items():
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1834,4 +1996,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli"] and len(sys.argv) > 2:
+        sys.exit(wrap_cli(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

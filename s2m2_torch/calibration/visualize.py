@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..utils.vis import apply_colormap, draw_epipolar_lines
+from ..utils.vis import apply_colormap, draw_epipolar_lines, require_cv2
 
 
 def render_calibration_comparison(engine, left, right, left_cal, right_cal,
@@ -49,7 +49,7 @@ def render_calibration_comparison(engine, left, right, left_cal, right_cal,
 
 
 def show_calibration_comparison(engine, left, right, left_cal, right_cal):
-    import cv2
+    cv2 = require_cv2("show_calibration_comparison")
     panel, sb, sa = render_calibration_comparison(engine, left, right,
                                                   left_cal, right_cal)
     print(f"confidence before {sb:.4f} -> after {sa:.4f}")

@@ -19,8 +19,8 @@ rectification is written here in numpy instead of calling cv2:
 Plus the dataset calib parsers used by the demos:
   * Middlebury calib.txt (cam0/cam1/doffs/baseline)
     (reference: demo/visualize_3d_middlebury.py:54-69)
-  * OpenCV FileStorage calib.xml (Booster), the one function here that
-    imports cv2 (reference: demo/visualize_3d_booster.py:54-61)
+  * OpenCV FileStorage calib.xml (Booster), through `utils.filestorage`
+    (reference: demo/visualize_3d_booster.py:54-61)
 """
 from __future__ import annotations
 
@@ -346,18 +346,11 @@ def read_middlebury_calib(path):
 
 
 def read_opencv_calib_xml(path):
-    """Booster-style calib.xml via cv2.FileStorage
-    (reference: demo/visualize_3d_booster.py:54-61): matrices as arrays,
-    scalars (baseline, doffs) as floats. (The JAX package's copy calls
-    node.mat() on scalar nodes too, which OpenCV 5 refuses.)"""
-    import cv2
-    fs = cv2.FileStorage(str(path), cv2.FILE_STORAGE_READ)
-    out = {}
-    for key in ("M1", "M2", "D1", "D2", "R", "T", "baseline", "doffs",
-                "mtxL", "mtxR"):
-        node = fs.getNode(key)
-        if node.empty():
-            continue
-        out[key] = node.mat() if node.isMap() else node.real()
-    fs.release()
-    return out
+    """Booster-style calib.xml, an OpenCV FileStorage file
+    (reference: demo/visualize_3d_booster.py:54-61), read without OpenCV
+    (`utils.filestorage`): matrices as arrays, scalars (baseline, doffs) as
+    floats. (The JAX package's copy calls node.mat() on scalar nodes too,
+    which OpenCV 5 refuses.)"""
+    from .filestorage import read_filestorage
+    return read_filestorage(path, ("M1", "M2", "D1", "D2", "R", "T", "baseline", "doffs",
+                                   "mtxL", "mtxR"))

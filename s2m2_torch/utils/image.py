@@ -9,24 +9,67 @@ numpy versions, which the tests hold the library against.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
 
 def read_images(left_path, right_path):
-    """Load a stereo pair as RGB uint8 arrays (H, W, 3): cv2 where it is
-    installed, else PIL (as s2m2_tpu/utils/image.py:read_images)."""
+    """Load a stereo pair as RGB uint8 arrays (H, W, 3). PNG files go through
+    `utils.png.read_png` on every machine, so the card's machine (no OpenCV,
+    no PIL) and the CPU decode the same pixels; other files through cv2 (as
+    s2m2_tpu/utils/image.py:read_images), else PIL, where one is installed."""
+    return _read_image(left_path), _read_image(right_path)
+
+
+def _read_image(path):
+    path = str(path)
+    if path.lower().endswith(".png"):
+        from .png import read_png
+        return read_png(path)
     try:
         import cv2
-        left = cv2.cvtColor(cv2.imread(str(left_path), cv2.IMREAD_COLOR),
-                            cv2.COLOR_BGR2RGB)
-        right = cv2.cvtColor(cv2.imread(str(right_path), cv2.IMREAD_COLOR),
-                             cv2.COLOR_BGR2RGB)
-        return left, right
     except ImportError:
+        pass
+    else:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"{path}: cv2 could not read the image")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    try:
         from PIL import Image
-        return (np.asarray(Image.open(left_path).convert("RGB")),
-                np.asarray(Image.open(right_path).convert("RGB")))
+    except ImportError:
+        ext = os.path.splitext(path)[1] or "(none)"
+        raise ImportError(f"{path}: reading a {ext} image needs cv2 or PIL, and neither "
+                          "is installed; PNG files need neither") from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def downscale_half(img):
+    """cv2.resize(img, (0, 0), fx=0.5, fy=0.5) (INTER_LINEAR) of a uint8
+    (H, W[, C]) image in numpy. At exactly 0.5 OpenCV takes its 2x2 area
+    path: each output pixel is the mean of its 2x2 block, rounded half up.
+    The output size is round-half-to-even of H / 2 and W / 2; where that
+    reaches past an odd edge, the last blocks average the pixels inside,
+    rounded half to even (OpenCV's scalar edge loop)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"downscale_half: needs uint8, got {img.dtype}")
+    h, w = img.shape[:2]
+    oh, ow = int(np.rint(h / 2)), int(np.rint(w / 2))
+    if oh == 0 or ow == 0:
+        raise ValueError(f"downscale_half: a {h}x{w} image has no half-size pixels")
+    pad = [(0, max(0, 2 * oh - h)), (0, max(0, 2 * ow - w))] + [(0, 0)] * (img.ndim - 2)
+    x = np.pad(img, pad)[:2 * oh, :2 * ow].astype(np.uint16)
+    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    out = (s + 2) >> 2
+    if 2 * oh > h or 2 * ow > w:
+        inside = np.pad(np.ones((h, w), np.uint16), pad[:2])[:2 * oh, :2 * ow]
+        n = inside[0::2, 0::2] + inside[0::2, 1::2] + inside[1::2, 0::2] + inside[1::2, 1::2]
+        n = n.reshape(n.shape + (1,) * (img.ndim - 2))
+        out = np.where(n == 4, out, np.rint(s / n))
+    return out.astype(np.uint8)
 
 
 def _adaptive_avg_pool(x, out_h, out_w):

@@ -108,7 +108,11 @@ def test_package_imports_no_jax():
             "s2m2_torch.tools.eval_dataset, s2m2_torch.tools.checkpoint, "
             "s2m2_torch.tools.calibrate, s2m2_torch.tools.fetch_weights, "
             "s2m2_torch.train.loss, s2m2_torch.train.step, s2m2_torch.train.trainer, "
-            "s2m2_torch.train.augment, s2m2_torch.train.data; "
+            "s2m2_torch.train.augment, s2m2_torch.train.data, s2m2_torch.utils.png, "
+            "s2m2_torch.utils.filestorage, s2m2_torch.demo._scenes, "
+            "s2m2_torch.demo.visualize_2d_simple, s2m2_torch.demo.visualize_3d_middlebury, "
+            "s2m2_torch.demo.visualize_3d_booster, s2m2_torch.demo.online_calibration, "
+            "s2m2_torch.demo.train_demo, s2m2_torch.tools.train_convergence; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'s2m2_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -184,13 +184,50 @@ def trained():
     return cfg, ckpt, scene, ref
 
 
-@pytest.mark.parametrize("precision,bound", [("int8", 0.03), ("int8r", 0.04)])
+def test_trained_model_actually_learned(trained):
+    """The port's fp32 disparity on the trained checkpoint is the JAX
+    engine's, and its held-out EPE is far below the init's 2.37 px."""
+    from s2m2_tpu.config import ModelConfig as JaxConfig
+    from s2m2_tpu.runtime.engine import StereoEngine as JaxEngine
+    cfg, ckpt, scene, ref = trained
+    jax_eng = JaxEngine(JaxConfig(feature_channels=32, num_transformer=1, refine_iter=2),
+                        checkpoint=ckpt, precision="fp32")
+    want = np.asarray(jax_eng.forward_padded(scene["img0"], scene["img1"])[0])
+    np.testing.assert_allclose(ref, want, rtol=0, atol=1e-4)
+    epe = float(np.abs(ref - scene["gt_disp"])[scene["valid"] > 0].mean())
+    assert epe < 1.3, f"trained fixture held-out EPE {epe}"
+
+
+@pytest.mark.parametrize("precision,bound", [("int8", 0.03), ("int8r", 0.04),
+                                             ("bf16", 0.04)])
 def test_trained_int8_drift(trained, precision, bound):
+    """Drift from the port's fp32 disparity within the JAX file's bounds
+    (int8 calibrated on the scene itself; bf16 for comparison)."""
     cfg, ckpt, scene, ref = trained
     eng = StereoEngine(cfg, checkpoint=ckpt, precision=precision, device="cpu")
     disp = eng.forward_padded(scene["img0"], scene["img1"])[0].numpy()
     epe = float(np.abs(disp - ref).mean())
     assert epe < bound, f"trained {precision} drift {epe}"
+
+
+def test_trained_percentile_calibration(trained):
+    cfg, ckpt, scene, ref = trained
+    eng = StereoEngine(cfg, checkpoint=ckpt, precision="int8", device="cpu")
+    eng.calibrate(scene["img0"], scene["img1"], percentile=99.9)
+    disp = eng.forward_padded(scene["img0"], scene["img1"])[0].numpy()
+    epe = float(np.abs(disp - ref).mean())
+    assert epe < 0.05, f"trained percentile-calibrated int8 drift {epe}"
+
+
+def test_trained_low_res_calibration(trained):
+    """Scales from the scene at half resolution serve the full one."""
+    from s2m2_torch.utils.image import image_pad
+    cfg, ckpt, scene, ref = trained
+    eng = StereoEngine(cfg, checkpoint=ckpt, precision="int8", device="cpu")
+    eng.calibrate(image_pad(scene["img0"][:, ::2, ::2]), image_pad(scene["img1"][:, ::2, ::2]))
+    disp = eng.forward_padded(scene["img0"], scene["img1"])[0].numpy()
+    epe = float(np.abs(disp - ref).mean())
+    assert epe < 0.08, f"trained low-res-calibrated int8 drift {epe}"
 
 
 def test_engine_calibration_api(tmp_path, rng):
