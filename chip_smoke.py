@@ -122,6 +122,36 @@ non-zero:
    Booster demo's beside phase 6's XL bf16 unfused median), its output's
    size (panel bytes, PLY points), the convergence run's EPE, bad-2.0 and
    ms per step.
+12. parallel: the port's ('data', 'band') mesh (s2m2_torch/parallel/) on 2
+   ranks, each a process of this script's `--rank` mode. With one card both
+   ranks use it and talk over gloo on host copies (the host transport, so
+   the times are not a scaling figure); with two or more cards each rank
+   has its own and they talk over NCCL. The transport is printed. Cells, S
+   at 1216x1024 on phase 5's pairs, 3 requests each after one untimed:
+   fp32 on a 1x2 mesh (bands of 512 rows), bf16 on 1x2 and on 2x1 (two
+   pairs a request), bf16 with the fused block on 1x2 (D runs sharded),
+   int8 on 1x2 (calibrated on the full frames on every rank). Rank 0 also
+   serves the unsharded engine on the same requests (twice the first, to
+   show it is deterministic) and holds the sharded outputs to it with
+   fixed bounds (`PARALLEL_BOUNDS`): fp32 max |d disp| <= 1e-3 px, occ <=
+   1e-4, conf <= 6.8e-3; bf16 mean |d disp| <= 0.026 px. The last two are
+   twice the largest change a 1e-6 relative input change makes in the
+   unsharded forward (`s2m2_torch/tools/chip_probe.py sensitivity`), above
+   the planned 1e-4 and 0.01 px, which the line reports as met or not.
+   int8 follows the JAX int8 test's rule: max below the larger of 0.02 and
+   twice the unsharded disparity's change under a 1e-6 relative change of
+   each request's left image, the 99th percentile below half of that. Per
+   rank and forward A/B/C (and D, E where they run) launch what the
+   unsharded forward launches, and the band collectives (halo exchanges,
+   all-reduces, all-gathers) equal `parallel.band.expected_counts`. Each
+   distinct shape the sharded forwards give kernels A-D is held to its
+   plain version with phase 3's seeded inputs and tolerances, and E at the
+   band-sharded conv geometries (row padding 0). Then data-parallel
+   training at 2x1 (CH32, batch 2, 3 steps) against one process: loss
+   within 1e-4 relative, each gradient leaf within 1e-3 of its max + 1e-9.
+   One line per cell and rank: ms per
+   request (the slowest rank's) beside the unsharded median, launches and
+   collectives per forward and the bytes each kind moved.
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -135,6 +165,7 @@ nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -384,10 +415,12 @@ def seeded_block(c, heads, seed=0):
     return blk
 
 
-def phase_kernels(shapes, xl_shapes):
-    """`shapes`: per kernel, the Counter of shapes (and launches per forward)
-    of the S forward (D's: of the XL fused forward); `xl_shapes`: A's, B's
-    and C's of the XL unfused forward, timed as well and tagged "XL"."""
+def _kernel_case(name, shape, dtype, g, **kw):
+    """Seeded inputs of one kernel at one shape, as phase 3 makes them, and
+    the kernel and its plain version on them: (checks [(kind, kernel's
+    output, plain output)], kernel call, plain call, library call or None,
+    the port's unfused block or None, the kernel's plan or None). Shapes
+    as `main_path_shapes` gives them; `kw` goes to kernel C's calls."""
     import torch
     import torch.nn.functional as F
     from s2m2_torch.models.layers import layer_norm
@@ -395,8 +428,59 @@ def phase_kernels(shapes, xl_shapes):
     from s2m2_torch.ops import fused_block as fb
     from s2m2_torch.ops import sinkhorn
 
-    g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
+    unfused = None
+    if name == "fused_basic_attn_block":
+        n, w, c, heads = shape
+        blk = seeded_block(c, heads).to(dev, dtype)
+        wts = blk.fused_weights()
+        rows = torch.randn((2 * n, w, c), generator=g, device=dev).to(dtype)
+        got = fb.fused_basic_attn_block(rows, n, wts, heads)
+        ref = torch.cat(fb.fused_basic_attn_block_plain(rows[:n], rows[n:], wts, heads))
+        checks = [("block", got, ref)]
+        kern = lambda: fb.fused_basic_attn_block(rows, n, wts, heads)  # noqa: E731
+        plain = lambda: fb.fused_basic_attn_block_plain(  # noqa: E731
+            rows[:n], rows[n:], wts, heads)
+        unfused = lambda: blk.forward_rows(rows)  # noqa: E731  (blk.fused is off)
+        return checks, kern, plain, None, unfused, fb.plan(w, c, c, heads, dtype)._asdict()
+    if name == "fused_correlation_ot":
+        f0, f1 = (layer_norm(torch.randn(shape, generator=g, device=dev)).to(dtype)
+                  for _ in range(2))
+        got = sinkhorn.fused_correlation_ot(f0, f1, **kw)
+        ref = sinkhorn.fused_correlation_ot_plain(f0, f1, **kw)
+        checks = [("prob", got[0], ref[0]), ("cv", got[1], ref[1])]
+        kern = lambda: sinkhorn.fused_correlation_ot(f0, f1, **kw)  # noqa: E731
+        plain = lambda: sinkhorn.fused_correlation_ot_plain(f0, f1, **kw)  # noqa: E731
+        return checks, kern, plain, None, None, \
+            sinkhorn.plan(shape[2], shape[3], dtype, True)._asdict()
+    # B as the model calls it: the packed (x | y) batch, (2B, N, D)
+    b = shape[0]
+    if name == "scanline_cross_attention":
+        b *= 2
+        fn, plain_fn = fa.scanline_cross_attention_packed, fa.packed_cross_attention_plain
+    else:
+        fn, plain_fn = fa.scanline_attention, fa.scanline_attention_plain
+    xs = [torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype) for _ in range(3)]
+    checks = [("attn", fn(*xs), plain_fn(*xs))]
+    # (B, 1, N, D) views: SDPA's fused backends take 4D inputs
+    q4, k4, v4 = (x.unsqueeze(1) for x in xs)
+    if name == "scanline_attention":
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
+    else:
+        h = b // 2
+        lib = lambda: (  # noqa: E731
+            F.scaled_dot_product_attention(q4[:h], k4[h:], v4[h:]),
+            F.scaled_dot_product_attention(q4[h:], k4[:h], v4[:h]))
+    return checks, lambda: fn(*xs), lambda: plain_fn(*xs), lib, None, \
+        fa.plan(dtype, shape[-1])._asdict()
+
+
+def phase_kernels(shapes, xl_shapes):
+    """`shapes`: per kernel, the Counter of shapes (and launches per forward)
+    of the S forward (D's: of the XL fused forward); `xl_shapes`: A's, B's
+    and C's of the XL unfused forward, timed as well and tagged "XL"."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
     results = {name: {"float32": [], "bfloat16": []} for name in shapes}
     # D: S's 1x scale and L's widest scanline block, not on the XL path
     extra = {"fused_basic_attn_block": [(256, 304, 128, 1), (64, 76, 512, 4)]}
@@ -410,57 +494,8 @@ def phase_kernels(shapes, xl_shapes):
         for shape, per_forward, model in todo:
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[1]
-                unfused = instance = None
-                if name == "fused_basic_attn_block":
-                    n, w, c, heads = shape
-                    blk = seeded_block(c, heads).to(dev, dtype)
-                    wts = blk.fused_weights()
-                    rows = torch.randn((2 * n, w, c), generator=g, device=dev).to(dtype)
-                    got = fb.fused_basic_attn_block(rows, n, wts, heads)
-                    ref = torch.cat(fb.fused_basic_attn_block_plain(rows[:n], rows[n:], wts,
-                                                                    heads))
-                    checks = [("block", got, ref)]
-                    kern = lambda: fb.fused_basic_attn_block(rows, n, wts, heads)  # noqa: E731
-                    plain = lambda: fb.fused_basic_attn_block_plain(  # noqa: E731
-                        rows[:n], rows[n:], wts, heads)
-                    unfused = lambda: blk.forward_rows(rows)  # noqa: E731  (blk.fused is off)
-                    lib = None
-                    instance = fb.plan(w, c, c, heads, dtype)._asdict()
-                elif name == "fused_correlation_ot":
-                    f0, f1 = (layer_norm(torch.randn(shape, generator=g, device=dev))
-                              .to(dtype) for _ in range(2))
-                    got = sinkhorn.fused_correlation_ot(f0, f1)
-                    ref = sinkhorn.fused_correlation_ot_plain(f0, f1)
-                    checks = [("prob", got[0], ref[0]), ("cv", got[1], ref[1])]
-                    kern = lambda: sinkhorn.fused_correlation_ot(f0, f1)  # noqa: E731
-                    plain = lambda: sinkhorn.fused_correlation_ot_plain(f0, f1)  # noqa: E731
-                    lib = None
-                    instance = sinkhorn.plan(shape[2], shape[3], dtype, True)._asdict()
-                else:
-                    # B as the model calls it: the packed (x | y) batch, (2B, N, D)
-                    b = shape[0]
-                    if name == "scanline_cross_attention":
-                        b *= 2
-                        fn, plain_fn = (fa.scanline_cross_attention_packed,
-                                      fa.packed_cross_attention_plain)
-                    else:
-                        fn, plain_fn = fa.scanline_attention, fa.scanline_attention_plain
-                    xs = [torch.randn((b, *shape[1:]), generator=g, device=dev).to(dtype)
-                          for _ in range(3)]
-                    got, ref = fn(*xs), plain_fn(*xs)
-                    checks = [("attn", got, ref)]
-                    kern = lambda: fn(*xs)  # noqa: E731
-                    plain = lambda: plain_fn(*xs)  # noqa: E731
-                    instance = fa.plan(dtype, shape[-1])._asdict()
-                    # (B, 1, N, D) views: SDPA's fused backends take 4D inputs
-                    q4, k4, v4 = (x.unsqueeze(1) for x in xs)
-                    if name == "scanline_attention":
-                        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4)  # noqa: E731
-                    else:
-                        h = b // 2
-                        lib = lambda: (  # noqa: E731
-                            F.scaled_dot_product_attention(q4[:h], k4[h:], v4[h:]),
-                            F.scaled_dot_product_attention(q4[h:], k4[:h], v4[:h]))
+                checks, kern, plain, lib, unfused, instance = _kernel_case(name, shape,
+                                                                           dtype, g)
                 torch.cuda.synchronize()
                 errs = []
                 for kind, a, b in checks:
@@ -1870,6 +1905,386 @@ def phase_entry_points(medians):
     return launches
 
 
+# phase 12: multi-device inference and data-parallel training on 2 ranks.
+# With one card both ranks share cuda:0 over the host transport (gloo on
+# host copies), so the times say nothing about scaling; with two or more
+# cards each rank has its own and they talk over NCCL.
+PARALLEL_RANKS = 2
+PARALLEL_REQUESTS = 3
+PARALLEL_TIMEOUT = 400       # seconds for the whole phase's ranks
+PARALLEL_GROUP_TIMEOUT = 300  # seconds a collective of a rank may wait
+# (label, precision, fused block, mesh (data, band), pairs a request)
+PARALLEL_CELLS = (("fp32 1x2", "fp32", False, (1, 2), 1),
+                  ("bf16 1x2", "bf16", False, (1, 2), 1),
+                  ("bf16 2x1", "bf16", False, (2, 1), 2),
+                  ("bf16 fused 1x2", "bf16", True, (1, 2), 1),
+                  ("int8 1x2", "int8", False, (1, 2), 1))
+PARALLEL_NOTE = "one card shared by 2 ranks, host transport: not a scaling figure"
+# outputs against the unsharded engine on the same requests. fp32 disp and
+# occ keep their planned bounds. fp32 conf and the bf16 mean disparity
+# cannot: the unsharded forward moves them more under a 1e-6 relative input
+# change than the planned 1e-4 and 0.01 px, so they are fixed at twice the
+# largest such change (5 perturbations over the 3 requests of each
+# cell, `s2m2_torch/tools/chip_probe.py sensitivity`, NVIDIA H100 80GB
+# HBM3, 700.00 W: fp32 conf 2.50e-3 to 3.37e-3, bf16 mean 0.0127 to 0.0130
+# px; PERF.md section 6)
+PARALLEL_BOUNDS = {"fp32": {"max_abs_disp_diff_px": 1e-3, "max_abs_occ_diff": 1e-4,
+                            "max_abs_conf_diff": 6.8e-3},
+                   "bf16": {"mean_abs_disp_diff_px": 0.026}}
+PARALLEL_PLANNED = {"max_abs_conf_diff": 1e-4, "mean_abs_disp_diff_px": 0.01}
+E_KERNELS = ("int8_quantize_pack", "int8_gemm")
+
+
+def _batch(pairs):
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def _parallel_requests(eng, requests, untimed=contextlib.nullcontext()):
+    """Serve `requests` (lists of (left, right) pairs, one batch each) through
+    eng.run after one untimed request, made inside the context `untimed`;
+    launch counts set to 0 just before the timed ones and read just after.
+    Returns (outputs of each request, ms of each, launches per forward, the
+    last forward's band collectives and quant log)."""
+    from s2m2_torch.models import quant
+    from s2m2_torch.ops import _build
+    from s2m2_torch.parallel import band
+
+    with untimed:
+        eng.run(*_batch(requests[0]))
+    _build.reset_launch_counts()
+    band.reset_counts()
+    outs, ms = [], []
+    for pairs in requests:
+        disp, occ, conf, _, t = eng.run(*_batch(pairs))
+        outs.append((disp, occ, conf))
+        ms.append(t)
+    counts = dict(_build.launch_counts)
+    per = {k: v / len(requests) for k, v in counts.items()}
+    return outs, ms, per, counts, band.last_counts(), quant.last_log()
+
+
+@contextlib.contextmanager
+def _abcd_calls(calls):
+    """Within: each distinct call the model makes of kernels A-D added to
+    the set `calls`, as (kernel, shape as `main_path_shapes` gives it, dtype
+    name, kernel C's keywords); the wrappers themselves still run."""
+    from s2m2_torch.models import matching
+    from s2m2_torch.ops import flash_attention as fa
+    from s2m2_torch.ops import fused_block as fb
+    dn = lambda t: str(t.dtype).split(".")[1]  # noqa: E731
+    keys = {
+        (fa, "scanline_attention"):
+            lambda q, k, v: ("scanline_attention", tuple(q.shape), dn(q), ()),
+        (fa, "scanline_cross_attention_packed"):
+            lambda q, k, v: ("scanline_cross_attention", (q.shape[0] // 2, *q.shape[1:]),
+                             dn(q), ()),
+        (matching, "fused_correlation_ot"):
+            lambda f0, f1, **kw: ("fused_correlation_ot", tuple(f0.shape), dn(f0),
+                                  tuple(sorted(kw.items()))),
+        (fb, "fused_basic_attn_block"):
+            lambda rows, right0, weights, heads: ("fused_basic_attn_block",
+                                                  (right0, *rows.shape[1:], heads), dn(rows), ()),
+    }
+    saved = {}
+    for (mod, attr), key in keys.items():
+        fn = saved[(mod, attr)] = getattr(mod, attr)
+
+        def recorded(*args, _fn=fn, _key=key, **kw):
+            calls.add(_key(*args, **kw))
+            return _fn(*args, **kw)
+        setattr(mod, attr, recorded)
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def _abcd_band_sites(calls, done):
+    """Kernels A-D at the shapes a sharded forward gave them (`_abcd_calls`),
+    each distinct one not in `done` once through its wrapper and its plain
+    version on phase 3's seeded inputs, with phase 3's tolerances. Adds the
+    checked ones to `done`; returns their records; raises on a mismatch."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out, failures = [], []
+    for name, shape, dn, kw in sorted(calls - done):
+        done.add((name, shape, dn, kw))
+        with torch.inference_mode():  # as phase 3
+            checks = _kernel_case(name, shape, getattr(torch, dn), g, **dict(kw))[0]
+        for kind, a, b in checks:
+            err, limit, ok = _max_err_ok(a, b, dn, kind)
+            out.append({"kernel": name, "shape": list(shape), "dtype": dn, "output": kind,
+                        "max_abs_err": err, "bound": limit, "ok": ok})
+            if not ok:
+                failures.append(out[-1])
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions at the "
+                             f"band-sharded shapes: {failures}")
+    return out
+
+
+def _e_band_sites(log):
+    """Kernel E at the band-sharded forward's own conv geometries (row
+    padding 0 on rows that carry their halo) against its plain version:
+    each distinct pack bit-equal, each GEMM's int32 accumulators bit-equal.
+    Returns the shapes checked and how many of the GEMMs loaded their taps
+    as TMA boxes (`ig.tap_tiles`: stride 1, Cp % 128 == 0), the route whose
+    row and column paddings then differ; raises on a mismatch."""
+    import torch
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seen, checked, tiled = set(), 0, 0
+    for r in log:
+        conv = r.get("conv")
+        if r["kind"] not in ("pack", "gemm") or conv is None or conv[4] != 0 or conv[0] == 1:
+            continue
+        key = (r["kind"], tuple(r.get("in_shape") or r.get("a_shape")), tuple(conv))
+        if key in seen:
+            continue
+        seen.add(key)
+        if r["kind"] == "pack":
+            if r["layout"] != "im2col":
+                continue
+            x, kw = _site_pack_inputs(g, r)
+            ok = torch.equal(ig.quantize_pack(x, 20.0, **kw),
+                             ig.quantize_pack_plain(x, 20.0, **kw))
+        else:
+            a, w = _site_gemm_inputs(g, r)
+            ok = torch.equal(ig.int8_gemm(a, w, out_dtype=torch.int32, conv=conv),
+                             ig.int8_gemm_plain(a, w, out_dtype=torch.int32, conv=conv))
+            tiled += ig.tap_tiles(conv, r["a_shape"][3])
+        checked += 1
+        if not ok:
+            raise AssertionError(f"kernel E disagrees with its plain version at the "
+                                 f"band-sharded {r['kind']} {key}")
+    return {"shapes": checked, "tap_tiles_gemms": tiled}
+
+
+def _parallel_train_check(mesh, lead):
+    """Data-parallel training at 2x1: CH32/NTR1/refine_iter 2, batch 2 at
+    96x128 (one pair a rank), fp32; the first step's gradient and 3 steps of
+    `train()`, and on the lead rank the same in one process on both pairs.
+    Bounds: loss within 1e-4 relative, each gradient leaf within 1e-3 of
+    its max |g| + 1e-9 (phase 9's rule: at initialisation the MRT's q and k
+    gradients are differences of nearly equal terms)."""
+    import torch
+    from s2m2_torch.config import ModelConfig
+    from s2m2_torch.ops import _build
+    from s2m2_torch.train import step as tstep
+    from s2m2_torch.train.data import synthetic_stereo_batches
+    from s2m2_torch.train.trainer import train
+
+    cfg = ModelConfig(feature_channels=32, num_transformer=1, refine_iter=2)
+    batches = list(synthetic_stereo_batches(batch=2, height=96, width=128, max_disp=24,
+                                            seed=0, n_batches=3))
+    dev = mesh.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda _: None)
+
+    def grads(m):
+        model = _seeded_model(cfg, dev)
+        params = dict(model.named_parameters())
+        part = tstep.as_batch(tstep.shard_batch(batches[0], m), dev)
+        metrics, g = tstep.value_and_grad(tstep.make_loss_fn(model), params, part, m)
+        return float(metrics["loss"]), {k: v.float().cpu() for k, v in g.items()}
+
+    def losses(m):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, _, hist = train(cfg, iter(batches), num_steps=3, lr=1e-4, log_every=1,
+                           log=lambda _: None, device=dev, mesh=m)
+        sync(dev)
+        return [h["loss"] for h in hist], (time.perf_counter() - t0) * 1e3 / 3
+
+    _build.reset_launch_counts()
+    loss_dp, g_dp = grads(mesh)
+    dp_losses, dp_ms = losses(mesh)
+    counts = dict(_build.launch_counts)
+    rec = {"cell": "train 2x1", "config": "CH32 NTR1 refine_iter=2, 96x128, batch 2, fp32",
+           "loss": loss_dp, "losses": dp_losses, "ms_per_step": dp_ms, "launches": counts}
+    if lead:
+        loss_1, g_1 = grads(None)
+        one_losses, one_ms = losses(None)
+        worst = max((float((g_dp[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30), k)
+                    for k, g in g_1.items())
+        bad = [k for k, g in g_1.items()
+               if float((g_dp[k] - g).abs().max()) > 1e-3 * float(g.abs().max()) + 1e-9]
+        rec.update(single_loss=loss_1, single_losses=one_losses, single_ms_per_step=one_ms,
+                   worst_leaf=worst, leaves_over_bound=bad,
+                   loss_rel_err=abs(loss_dp - loss_1) / abs(loss_1),
+                   losses_rel_err=max(abs(a - b) / abs(b) for a, b in zip(dp_losses,
+                                                                          one_losses)))
+        rec["ok"] = rec["loss_rel_err"] <= 1e-4 and rec["losses_rel_err"] <= 1e-4 and not bad
+    return rec
+
+
+def rank_main(argv):
+    """`chip_smoke.py --rank R --world N --init ADDR --backend B [--device
+    D]`: one rank of phase 12 (D: cuda:0 under gloo, cuda:R under NCCL, or
+    cpu to run its control flow on the CPU). Prints one JSON line per cell;
+    exits non-zero when a check of a cell fails."""
+    import argparse
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from s2m2_torch.config import get_config
+    from s2m2_torch.demo._scenes import stereo_pair
+    from s2m2_torch.parallel import band
+    from s2m2_torch.parallel.distributed import initialize_distributed
+    from s2m2_torch.parallel.mesh import make_mesh
+    from s2m2_torch.runtime.engine import StereoEngine
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, required=True)
+    ap.add_argument("--init", required=True)
+    ap.add_argument("--backend", choices=("gloo", "nccl"), required=True)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args(argv)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    initialize_distributed(args.init, args.world, args.rank, backend=args.backend,
+                           timeout=PARALLEL_GROUP_TIMEOUT)
+    device = args.device or ("cuda:0" if args.backend == "gloo" else f"cuda:{args.rank}")
+    on_card = device.startswith("cuda")
+    lead = args.rank == 0
+    rng = np.random.default_rng(0)
+    pairs = [stereo_pair(rng, H, W, 16 + 8 * i) for i in range(2 * PARALLEL_REQUESTS)]
+    meshes, failed, abcd_done = {}, [], set()
+    expected = band.expected_counts(get_config("S"))
+    zeros = dict.fromkeys(band.KINDS, 0)
+    for label, precision, fused, shape, per_request in PARALLEL_CELLS:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape, device=device, backend=args.backend,
+                                      timeout=PARALLEL_GROUP_TIMEOUT)
+        mesh = meshes[shape]
+        requests = [pairs[per_request * i:per_request * (i + 1)]
+                    for i in range(PARALLEL_REQUESTS)]
+        t0 = time.perf_counter()
+        eng = StereoEngine("S", precision=precision, seed=0, fused_block=fused, mesh=mesh)
+        calls = set()
+        untimed = _abcd_calls(calls) if lead and on_card else contextlib.nullcontext()
+        outs, ms, per, counts, coll, log = _parallel_requests(eng, requests, untimed)
+        rec = {"phase": "parallel", "cell": label, "rank": args.rank, "mesh": list(shape),
+               "transport": mesh.transport, "device": str(mesh.device), "note": PARALLEL_NOTE,
+               "ms_per_request": ms, "median_ms": float(np.median(ms)),
+               "launches_per_forward": per, "launches": counts,
+               "collectives_per_forward": coll["counts"],
+               "collective_bytes_per_forward": coll["bytes"],
+               "collectives_expected": expected if shape[1] > 1 else zeros}
+        problems = []
+        if rec["collectives_per_forward"] != rec["collectives_expected"]:
+            problems.append("collective counts")
+        if lead and on_card:
+            rec["abcd_band_sites_checked"] = _abcd_band_sites(calls, abcd_done)
+        if precision.startswith("int8") and lead and on_card:
+            rec["e_band_sites_checked"] = _e_band_sites(log)
+        del eng
+        if lead:  # the unsharded engine on the same requests, in this process
+            ref_eng = StereoEngine("S", precision=precision, seed=0, fused_block=fused,
+                                   device=device)
+            r_outs, r_ms, r_per, _, _, _ = _parallel_requests(ref_eng, requests)
+            # the unsharded forward repeats itself to the bit
+            again = ref_eng.run(*_batch(requests[0]))[:3]
+            rec["unsharded_repeat_max"] = max(float(np.abs(x - r).max())
+                                              for x, r in zip(again, r_outs[0]))
+            if precision == "int8":
+                # the JAX int8 test's control (tests/test_parallel.py:130-137):
+                # the unsharded disparity under a 1e-6 relative change of the
+                # left image, here over every request
+                control = max(float(np.abs(ref_eng.run(a * np.float32(1 + 1e-6), b)[0]
+                                           - r[0]).max())
+                              for (a, b), r in zip(map(_batch, requests), r_outs))
+                rec["perturbation_disp_max"] = control
+            del ref_eng
+            rec["unsharded_ms_per_request"] = r_ms
+            rec["unsharded_median_ms"] = float(np.median(r_ms))
+            rec["unsharded_launches_per_forward"] = r_per
+            watched = ABC + (("fused_basic_attn_block",) if fused else ()) + \
+                (E_KERNELS if precision == "int8" else ())
+            if on_card and (any(per[k] != r_per[k] or per[k] <= 0 for k in watched)
+                            or any(per[k] for k in per if k not in watched)):
+                problems.append("launches per forward")
+            d = [np.abs(o - r) for got, ref in zip(outs, r_outs) for o, r in zip(got, ref)]
+            disp_d = np.concatenate([x.ravel() for x in d[0::3]])
+            occ_d = np.concatenate([x.ravel() for x in d[1::3]])
+            conf_d = np.concatenate([x.ravel() for x in d[2::3]])
+            rec.update(max_abs_disp_diff_px=float(disp_d.max()),
+                       mean_abs_disp_diff_px=float(disp_d.mean()),
+                       max_abs_occ_diff=float(occ_d.max()),
+                       max_abs_conf_diff=float(conf_d.max()))
+            if precision in PARALLEL_BOUNDS:
+                rec["bounds"] = PARALLEL_BOUNDS[precision]
+                ok = all(rec[k] <= v for k, v in rec["bounds"].items())
+                rec["planned_bounds_met"] = {k: rec[k] <= v for k, v in PARALLEL_PLANNED.items()
+                                             if k in rec["bounds"]}
+            else:
+                bound = max(0.02, 2 * control)
+                rec["bounds"] = {"max_abs_diff": bound, "p99_abs_diff": bound / 2}
+                every = np.concatenate([disp_d, occ_d, conf_d])
+                rec["p99_abs_diff"] = float(np.percentile(every, 99))
+                ok = float(every.max()) < bound and rec["p99_abs_diff"] < bound / 2
+            if not ok:
+                problems.append("outputs against the unsharded engine")
+        if on_card:
+            torch.cuda.empty_cache()
+        torch.distributed.barrier(group=mesh.world_group)
+        rec["cell_s"] = time.perf_counter() - t0
+        rec["ok"] = not problems
+        print(json.dumps(rec), flush=True)
+        if problems:
+            failed.append((label, problems))
+    t0 = time.perf_counter()
+    train_rec = _parallel_train_check(meshes[(2, 1)], lead)
+    train_rec.update(phase="parallel", rank=args.rank, mesh=[2, 1],
+                     transport=meshes[(2, 1)].transport, note=PARALLEL_NOTE,
+                     cell_s=time.perf_counter() - t0)
+    print(json.dumps(train_rec), flush=True)
+    if train_rec.get("ok") is False:
+        failed.append(("train 2x1", ["loss or gradients"]))
+    torch.distributed.destroy_process_group()
+    if failed:
+        print(f"rank {args.rank}: failed {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def phase_parallel():
+    """Phase 12: the port's mesh on 2 ranks started through this script's
+    `--rank` mode, both on cuda:0 over gloo (host copies) with one card,
+    each on its own card over NCCL with two or more. Returns the launches of
+    the ranks' sharded runs."""
+    import torch
+    from s2m2_torch.parallel.launch import run_ranks
+    backend = "nccl" if torch.cuda.device_count() >= PARALLEL_RANKS else "gloo"
+    t0 = time.perf_counter()
+    outs = run_ranks(lambda rank, init: [sys.executable, str(ROOT / "chip_smoke.py"),
+                                         "--rank", str(rank), "--world",
+                                         str(PARALLEL_RANKS), "--init", init,
+                                         "--backend", backend],
+                     PARALLEL_RANKS, timeout=PARALLEL_TIMEOUT, tail=200000,
+                     env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS":
+                          str(max(1, (os.cpu_count() or 2) // PARALLEL_RANKS))}, cwd=ROOT)
+    launches = Counter()
+    summary = {}
+    for out in outs:
+        for line in out.splitlines():
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            emit(rec)
+            launches.update(rec["launches"])
+            if rec["rank"] == 0:
+                summary[rec["cell"]] = {k: rec.get(k) for k in (
+                    "median_ms", "unsharded_median_ms", "ms_per_step", "single_ms_per_step",
+                    "collectives_per_forward", "collective_bytes_per_forward")}
+    emit({"phase": "parallel_done", "ranks": PARALLEL_RANKS, "backend": backend,
+          "transport": "gloo, host copies" if backend == "gloo" else "nccl",
+          "cards": torch.cuda.device_count(), "note": PARALLEL_NOTE
+          if backend == "gloo" else "one card per rank over NCCL",
+          "cells": summary, "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def _forward_sums(recs):
     """Each shape's times x its launches per forward, summed over `recs`."""
     tot = lambda key: sum(r[key] * r["per_forward"] for r in recs)  # noqa: E731
@@ -1979,6 +2394,7 @@ def main():
     launches.update(phase_train(pairs[0]))
     launches.update(phase_export(shapes, pairs, xl_int8_scales))
     launches.update(phase_entry_points(medians))
+    launches.update(phase_parallel())
     line = kernels_line(results, launches)
     for name, entry in e_entries.items():
         line.append({"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1998,4 +2414,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"] and len(sys.argv) > 2:
         sys.exit(wrap_cli(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[1:]))
     sys.exit(main())

@@ -1,23 +1,28 @@
 """Training demo (the reference ships no training; the JAX package's
 demo/train_demo.py): fit S2M2 on synthetic stereo scenes or a
-Middlebury-style directory, with checkpoints, on one device.
+Middlebury-style directory, with checkpoints, on one device or
+data-parallel over a mesh of local ranks.
 
     python -m s2m2_torch.demo.train_demo [--model_type S] [--data_root DIR]
         [--steps 50] [--batch 2] [--height 128] [--width 160] [--lr 1e-4]
-        [--checkpoint_dir DIR] [--device cuda]
+        [--checkpoint_dir DIR] [--device cuda] [--mesh DxB] [--backend gloo]
 
 The default model is the tiny debug configuration (CH32, NTR1,
 refine_iter 1). It trains on the card unless `--device cpu` is given.
-`--mesh` (multi-device training) is refused: the port has no multi-device
-path yet.
+`--mesh DxB` starts D*B ranks on this host (`parallel/launch.py`), each
+taking its slice of every batch: gloo on the CPU; on the card NCCL with a
+card per rank, or `--backend gloo` (the host transport) when the ranks
+share fewer cards. Band sharding in training (B > 1) is not ported and
+exits non-zero with the trainer's message.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
-def main(argv=None) -> int:
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model_type", default=None,
                     help="S/M/L/XL; default = tiny debug config")
@@ -30,14 +35,57 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--checkpoint_dir", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="'DATAxBAND' multi-device training: not ported yet")
+                    help="'DATAxBAND', e.g. 2x1: data-parallel over DATA local ranks")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="transport of a mesh on the card (default: NCCL, which "
+                         "needs a card per rank)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def _mesh_shape(spec):
+    try:
+        n_data, n_band = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"train_demo: --mesh takes DATAxBAND, e.g. 2x1, not {spec!r}")
+    return n_data, n_band
+
+
+def _spawn(argv, n_ranks):
+    """Run this demo on n_ranks local ranks; rank 0's output is printed."""
+    from ..parallel.launch import RanksFailed, run_ranks
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {**os.environ,
+           "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    try:
+        outs = run_ranks(lambda rank, init: [sys.executable, "-m", "s2m2_torch.demo.train_demo",
+                                             *argv, "--rank", str(rank), "--init", init],
+                         n_ranks, timeout=3600, env=env)
+    except RanksFailed as exc:
+        print(f"train_demo: {exc}", file=sys.stderr)
+        return 1
+    print(outs[0], end="")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    mesh = None
     if args.mesh:
-        print(f"train_demo: --mesh {args.mesh}: multi-device training is not ported "
-              "to s2m2_torch yet; run without --mesh to train on one device",
-              file=sys.stderr)
-        return 2
+        from ..train.step import BAND_TRAINING
+        n_data, n_band = _mesh_shape(args.mesh)
+        if n_band > 1:
+            print(f"train_demo: --mesh {args.mesh}: {BAND_TRAINING}", file=sys.stderr)
+            return 2
+        if args.rank is None:
+            return _spawn(argv, n_data * n_band)
+        from ..parallel.distributed import initialize_distributed
+        from ..parallel.mesh import make_mesh
+        initialize_distributed(args.init, n_data * n_band, args.rank)
+        mesh = make_mesh(n_data, n_band, device=args.device, backend=args.backend)
 
     from ..config import ModelConfig, get_config
     from ..train.data import directory_batches, synthetic_stereo_batches
@@ -52,7 +100,11 @@ def main(argv=None) -> int:
         batches = synthetic_stereo_batches(batch=args.batch, height=args.height,
                                            width=args.width)
     train(cfg, batches, num_steps=args.steps, lr=args.lr,
-          checkpoint_dir=args.checkpoint_dir, device=args.device)
+          checkpoint_dir=args.checkpoint_dir,
+          device=None if mesh is not None else args.device, mesh=mesh)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -33,6 +33,7 @@ from .layers import Linear
 from .pe import pe_contract
 from ..ops import flash_attention as fa
 from ..ops import fused_block as fb
+from ..parallel import band
 
 
 def _fold_heads(x, num_heads):
@@ -280,5 +281,16 @@ class ConvBlock2D(nn.Module):
         self.convs_1x = layers.mlp2(d, e * d, d, 1, 1, act=nn.ReLU)
 
     def forward(self, z):
-        z = quant.share_gemm_input(z)  # both branches read one int8 site
-        return self.convs(z) + self.convs_1x(z)
+        if not band.active():
+            z = quant.share_gemm_input(z)  # both branches read one int8 site
+            return self.convs(z) + self.convs_1x(z)
+        # under band sharding one halo exchange serves both branches, so the
+        # shared input (one int8 site, one pack) holds the halo rows: the
+        # first k x k conv reads them, the pointwise branch drops its
+        # outputs on them
+        k = self.convs[0].weight.shape[2] // 2
+        z = layers.halo(z, k, k)
+        h = z.shape[-2]
+        z = quant.share_gemm_input(z)
+        y = self.convs[2](self.convs[1](self.convs[0](z, haloed=True)))
+        return y + self.convs_1x(z)[..., k:h - k, :]

@@ -13,7 +13,14 @@ weights (I, O, kh, kw), linear weights (out, in). Numerics follow
   path adds the bias in float32 and casts to the input's dtype, and a
   prequantized weight on the float path is dequantized. A ConvT is a site
   only where `site_gate` is set (the mask heads, which the JAX package
-  runs as packed convolutions).
+  runs as packed convolutions);
+- under band sharding (`parallel.band.sharded`) the primitives that read
+  across rows take their neighbours' rows first: a conv (and a stride-1
+  ConvT) the rows its band's first and last outputs read, then convolves
+  with row padding 0; bilinear x2 and the 3x3 unfold one row each side,
+  replicated only at the image's edges; GroupNorm sums its statistics over
+  the bands. Everything else is row-local. With no band context the code
+  is the one-device code.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import quant
+from ..parallel import band
 
 
 def _operands(x, weight, bias):
@@ -89,12 +97,22 @@ def group_norm(x, weight, bias, num_groups=8, eps=1e-5):
 
     The one-pass E[x^2]-mean^2 form loses to cancellation when |mean| >> std;
     the affine is folded into per-group (a, d) coefficients as the JAX
-    package does, so both packages round alike."""
+    package does, so both packages round alike. Under band sharding the two
+    passes are two all-reduces over the bands: sums and count, then the
+    squared deviations."""
     b, c, h, w = x.shape
     g = num_groups
     xf = x.float().reshape(b, g, c // g, h, w)
-    mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-    var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+    if band.active():
+        n = torch.tensor([float(c // g * h * w)], device=x.device)
+        tot = band.all_reduce_sum(torch.cat([xf.sum(dim=(2, 3, 4)).reshape(-1), n]))
+        count = tot[-1]
+        mean = (tot[:-1] / count).reshape(b, g, 1, 1, 1)
+        sq = band.all_reduce_sum((xf - mean).square().sum(dim=(2, 3, 4)).reshape(-1))
+        var = (sq / count).reshape(b, g, 1, 1, 1)
+    else:
+        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
     scale = torch.rsqrt(var + eps)
     a = scale * weight.float().reshape(1, g, c // g, 1, 1)
     d = bias.float().reshape(1, g, c // g, 1, 1) - mean * a
@@ -110,9 +128,20 @@ def upsample2x_bilinear(x):
     """Bilinear x2 upsample, half-pixel centers (align_corners=False). A call
     autograd records goes through `_Upsample2xBilinear`, whose backward is
     deterministic."""
+    if band.active():
+        return _band_bilinear2x(x)
     if torch.is_grad_enabled() and x.requires_grad:
         return _Upsample2xBilinear.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def _band_bilinear2x(x):
+    """Bilinear x2 of a band: one row of each neighbour (the edge row at the
+    image's edges, which is the clamp), upsampled, less the two rows each
+    side that the halo rows produce."""
+    y = F.interpolate(band.halo(x, 1, 1, "edge"), scale_factor=2, mode="bilinear",
+                      align_corners=False)
+    return y[..., 2:-2, :]
 
 
 def _stencil2x(n, device):
@@ -161,9 +190,14 @@ def replicate_pad(x, pad=1):
 def unfold9(x, pad=1):
     """3x3 neighborhood unfold as 9 shifted slices with replicate padding
     (reference: core/model/utils.py:9-20). Output channels are tap-major:
-    out[:, t*C:(t+1)*C] is tap (di, dj) with t = di*3 + dj."""
+    out[:, t*C:(t+1)*C] is tap (di, dj) with t = di*3 + dj. Under band
+    sharding the rows come from the neighbouring bands, replicated only at
+    the image's edges."""
     h, w = x.shape[-2:]
-    xp = replicate_pad(x, pad)
+    if band.active():
+        xp = F.pad(band.halo(x, pad, pad, "edge"), (pad, pad, 0, 0), mode="replicate")
+    else:
+        xp = replicate_pad(x, pad)
     return torch.cat([xp[..., i:i + h, j:j + w] for i in range(3) for j in range(3)],
                      dim=1)
 
@@ -192,6 +226,22 @@ def _pair(k):
     return (k, k) if isinstance(k, int) else tuple(k)
 
 
+def conv_halo_rows(kh, sh, ph):
+    """(top, bottom): the rows above and below its band that a conv's band
+    reads (band starts are multiples of the stride, as whole 32-row blocks
+    guarantee): the first output reads ph rows up, the last kh - ph - sh
+    rows down. With them and row padding 0 the band's outputs are its own."""
+    return ph, max(0, kh - ph - sh)
+
+
+def halo(x, top, bottom):
+    """`band.halo` with zero fill, for a tensor or a quant.SharedQuantInput
+    (whose scale the extended input keeps)."""
+    if isinstance(x, quant.SharedQuantInput):
+        return quant.SharedQuantInput(band.halo(x.x, top, bottom), x.scale)
+    return band.halo(x, top, bottom)
+
+
 class Conv(nn.Module):
     """Conv2d with fixed stride/padding (padding k//2 unless given).
 
@@ -210,9 +260,24 @@ class Conv(nn.Module):
         self.padding = padding
         self.site_gate = None
 
-    def forward(self, x):
+    def pads(self):
+        """(ph, pw): the padding, k // 2 per side unless given."""
+        kh, kw = self.weight.shape[2:]
+        if self.padding is None:
+            return kh // 2, kw // 2
+        return _pair(self.padding)
+
+    def forward(self, x, haloed=False):
+        """haloed: under band sharding, x already carries the halo rows this
+        conv reads (ConvBlock2D exchanges once for both its branches)."""
+        ph, pw = self.pads()
+        kh = self.weight.shape[2]
+        if band.active() and kh > 1:
+            if not haloed:
+                x = halo(x, *conv_halo_rows(kh, self.stride, ph))
+            ph = 0
         if quant.active():
-            y = quant.conv_maybe_quantized(x, self)
+            y = quant.conv_maybe_quantized(x, self, (ph, pw))
             if y is not None:
                 return y
         x = quant.unwrap(x)
@@ -220,7 +285,7 @@ class Conv(nn.Module):
         qw = quant.prequant_of(self)
         if qw is not None:  # a prequantized weight on the float path: dequantize
             w = quant.dequantize(qw, w[0].numel(), x.dtype).reshape(w.shape)
-        return conv2d(x, w, self.bias, self.stride, self.padding)
+        return conv2d(x, w, self.bias, self.stride, (ph, pw))
 
 
 class ConvT(nn.Module):
@@ -237,11 +302,24 @@ class ConvT(nn.Module):
         self.site_gate = None
 
     def forward(self, x):
-        y = quant.conv_transpose_maybe_quantized(x, self)
+        """Under band sharding a stride-1 ConvT (a conv with the flipped
+        kernel and padding kh - 1 - p) takes kh - 1 - p rows from above and p
+        from below, then crops kh - 1 rows each side of its full output; a
+        ConvT whose stride equals its kernel (padding 0) is row-local."""
+        kh, kw = self.weight.shape[2:]
+        p, row_pad = self.padding, None
+        if band.active() and kh > 1:
+            if self.stride != 1 and not (self.stride == kh and p == 0):
+                raise NotImplementedError(f"band-sharded ConvT: stride {self.stride}, "
+                                          f"kernel {kh}, padding {p}")
+            if self.stride == 1:
+                x = halo(x, kh - 1 - p, p)
+                row_pad = kh - 1
+        y = quant.conv_transpose_maybe_quantized(x, self, row_pad is not None)
         if y is not None:
             return y
-        return conv_transpose2d(quant.unwrap(x), self.weight, self.bias, self.stride,
-                                self.padding)
+        pad = p if row_pad is None else (row_pad, p)
+        return conv_transpose2d(quant.unwrap(x), self.weight, self.bias, self.stride, pad)
 
 
 class Linear(nn.Module):

@@ -17,7 +17,7 @@ from torch import nn
 from ..ops import fused_block as fb
 from .attention import BasicAttnBlock, GlobalAttnBlock
 from .feature_fusion import FeatureFusion
-from .unet import down, up
+from .unet import down, global_blocks, up
 
 
 class MRT(nn.Module):
@@ -60,10 +60,7 @@ class MRT(nn.Module):
         z1 = self.enc_attn1(self.down_concat1(z1, self.down_conv0(z0)))
         z2 = self.enc_attn2(self.down_concat2(z2, self.down_conv1(z1)))
         z3 = self.down_concat3(z3, self.down_conv2(z2))
-        for blk in self.enc_attn3s:
-            z3 = blk(z3)
-        for blk in self.dec_attn3s:
-            z3 = blk(z3)
+        z3 = global_blocks(z3, self.enc_attn3s, self.dec_attn3s)
         z2 = self.dec_attn2(self.up_concat2(z2, self.up_conv2(z3)))
         z1 = self.dec_attn1(self.up_concat1(z1, self.up_conv1(z2)))
         z0 = self.dec_attn0(self.up_concat0(z0, self.up_conv0(z1)))

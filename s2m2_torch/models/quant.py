@@ -442,24 +442,27 @@ def gemm_site(x, weight, bias, qw, gate, geom=None, taps=None):
     return _int8_product(x, s_x, qw, bias, geom, taps)
 
 
-def conv_maybe_quantized(x, mod):
-    """int8 path of a `layers.Conv` (OIHW weight, padding k // 2 unless
-    given), or None."""
+def conv_maybe_quantized(x, mod, pads):
+    """int8 path of a `layers.Conv` (OIHW weight) with paddings (ph, pw), or
+    None. Under band sharding x already holds its halo rows, exchanged in
+    float so that they are quantized with this site's static scale, and ph
+    is 0."""
     cout, cin, kh, kw = mod.weight.shape
     gate = mod.site_gate or (kh * kw * cin, cin, cout)
-    ph, pw = (kh // 2, kw // 2) if mod.padding is None else (mod.padding, mod.padding)
+    ph, pw = pads
     return gemm_site(x, mod.weight.reshape(cout, -1), mod.bias, prequant_of(mod), gate,
                      (kh, kw, mod.stride, mod.stride, ph, pw),
                      getattr(mod, "w_q_taps", None))
 
 
-def conv_transpose_maybe_quantized(x, mod):
+def conv_transpose_maybe_quantized(x, mod, haloed=False):
     """int8 path of a `layers.ConvT` whose JAX counterpart is a site: the
     mask heads, which the JAX package runs as packed convolutions
     (packing.pack_convT2x2 / pack_convT3x3 / pack_pointwise). A 2x2
     stride-2 one is a 1x1 conv to the four phases' channels, with a weight
     scale per (phase, channel) as the packed weight gets; a stride-1 one
-    is a conv with the flipped kernel."""
+    is a conv with the flipped kernel, with row padding 0 when x holds its
+    band's halo rows (`haloed`)."""
     if mod.site_gate is None or not active():
         return None
     cin, cout, kh, kw = mod.weight.shape
@@ -479,4 +482,4 @@ def conv_transpose_maybe_quantized(x, mod):
     p = mod.padding
     w2d = w.flip(2, 3).transpose(0, 1).reshape(cout, cin * kh * kw)
     return gemm_site(x, w2d, mod.bias, None, mod.site_gate,
-                     (kh, kw, 1, 1, kh - 1 - p, kw - 1 - p))
+                     (kh, kw, 1, 1, 0 if haloed else kh - 1 - p, kw - 1 - p))

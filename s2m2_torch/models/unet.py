@@ -14,6 +14,7 @@ from .attention import ConvBlock2D, GlobalAttnBlock
 from .feature_fusion import FeatureFusion
 from .layers import Conv
 from .pe import pe_tables
+from ..parallel import band
 
 
 class _Resample(nn.Module):
@@ -33,6 +34,23 @@ def down(cin, cout):
 def up(cin, cout):
     """Bilinear x2 (align_corners=False) + 1x1 conv (reference: unet.py:32-37)."""
     return nn.Sequential(_Resample(layers.upsample2x_bilinear), Conv(cin, cout, 1))
+
+
+def global_blocks(z3, first, then, pe_dim=None):
+    """The 1/32 bottleneck's global-attention blocks, `first` (with the
+    relative PE when pe_dim is given) then `then`, over all h*w tokens.
+    Under band sharding the band's rows are gathered into the full map
+    first, every rank runs the blocks on it, and keeps its rows after them;
+    the PE tables are the full map's."""
+    h_local = z3.shape[2]
+    if band.active():
+        z3 = band.all_gather_rows(z3)
+    pe = None if pe_dim is None else pe_tables(z3.shape[2], z3.shape[3], pe_dim, z3.device)
+    for blk in first:
+        z3 = blk(z3) if pe is None else blk(z3, pe)
+    for blk in then:
+        z3 = blk(z3)
+    return band.rows_of(z3, h_local) if band.active() else z3
 
 
 class UNet(nn.Module):
@@ -67,17 +85,11 @@ class UNet(nn.Module):
     def forward(self, z):
         """z: (B, C, H, W) at the U-Net's top scale. Returns the 4 decoder
         scales (1x, 2x, 4x, 8x relative downsampling)."""
-        pe = None
-        if self.use_pe:
-            pe = pe_tables(z.shape[2] // 8, z.shape[3] // 8, self.pe_dim, z.device)
         z0 = self.enc0(z)
         z1 = self.enc1(self.down_conv0(z0))
         z2 = self.enc2(self.down_conv1(z1))
         z3 = self.down_conv2(z2)
-        for blk in self.enc3s:
-            z3 = blk(z3, pe)
-        for blk in self.dec3s:
-            z3 = blk(z3)
+        z3 = global_blocks(z3, self.enc3s, self.dec3s, self.pe_dim if self.use_pe else None)
         z2n = self.dec2(self.concat_conv2(z2, self.up_conv2(z3)))
         z1n = self.dec1(self.concat_conv1(z1, self.up_conv1(z2n)))
         z0n = self.dec0(self.concat_conv0(z0, self.up_conv0(z1n)))

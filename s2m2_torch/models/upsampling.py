@@ -8,7 +8,6 @@ sites are the packed forms' (`site_gate`, `quant.conv_transpose_maybe_quantized`
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from . import layers
@@ -83,8 +82,7 @@ def upsample1x(disp, filter_weights, output_upsample=False):
     disp_unfold = layers.unfold9(disp)
     if output_upsample:
         disp_unfold = layers.upsample_nearest(disp_unfold, 2)
-        filter_weights = F.interpolate(filter_weights, scale_factor=2, mode="bilinear",
-                                       align_corners=False, antialias=False)
+        filter_weights = layers.upsample2x_bilinear(filter_weights)
     wgt = _softmax_w(filter_weights, disp.dtype)
     return (disp_unfold * wgt).sum(dim=1, keepdim=True)
 

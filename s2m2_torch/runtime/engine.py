@@ -13,6 +13,15 @@ linears run as int8 sites (`models/quant.py`, kernel E on the card), with
 static activation scales from a calibration pass (s2m2_tpu/runtime/
 engine.py:95-276). An int8 engine calibrates on its first input or
 raises; it never serves bf16 in place of int8.
+
+Mesh (`mesh=parallel.mesh.make_mesh(...)`, the counterpart of the JAX
+engine's `mesh` / `in_shardings`): SPMD, every rank calls `run` /
+`forward_padded` with the same full inputs; the engine takes its shard
+(pairs over 'data', bands of whole 32-row blocks over 'band'), runs the
+forward under `parallel.band.sharded`, gathers, and returns the full maps on
+every rank. An int8 engine calibrates on the full padded frames, unsharded,
+on every rank, and checks that every rank's scales are the same. Without a
+mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -21,11 +30,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig, Precision, get_config
 from ..models import quant
 from ..models.init import init_params
 from ..models.s2m2 import S2M2
+from ..parallel import band
+from ..parallel.distributed import max_over_ranks
+from ..parallel.mesh import all_reduce, band_rows, image_sharding, replicated
 from ..tools.convert import load_checkpoint, tolerant_merge
 from ..utils.image import image_crop, image_pad, read_images
 
@@ -66,8 +79,10 @@ class StereoEngine:
         eng = StereoEngine("S", precision="bf16")            # on the card
         disp, occ, conf, score, ms = eng.run(left, right)    # HWC images
 
-    `device` defaults to "cuda" and the engine never drops to the CPU on its
-    own: pass device="cpu" to run the plain PyTorch versions of the kernels.
+    `device` defaults to "cuda" (a mesh's device with a mesh) and the engine
+    never drops to the CPU on its own: pass device="cpu" to run the plain
+    PyTorch versions of the kernels. `mesh` shards every forward over its
+    ranks (module docstring); its device must be the engine's.
     `fused_block=True` runs the MRT's scanline blocks with C, E <= 512 as one
     fused kernel each (kernel D); `self.model.set_fused_block` flips it.
     An int8 engine (`precision="int8" | "int8a" | "int8r"`) calibrates on
@@ -76,8 +91,8 @@ class StereoEngine:
 
     def __init__(self, model_type_or_cfg="S", *, checkpoint: Optional[str] = None,
                  precision: str = "bf16", use_positivity: bool = True,
-                 refine_iter: int = 3, seed: int = 0, device="cuda",
-                 fused_block: bool = False):
+                 refine_iter: int = 3, seed: int = 0, device=None,
+                 fused_block: bool = False, mesh=None):
         if isinstance(model_type_or_cfg, ModelConfig):
             self.cfg = model_type_or_cfg
         else:
@@ -94,7 +109,13 @@ class StereoEngine:
         self.quant_residency = precision == "int8r"
         self.quant_scales = None  # set by calibrate() / load_calibration()
         self.quant_gemms = 0      # quantized GEMMs the calibration pass saw
+        self.mesh = mesh
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         self.device = torch.device(device)
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"StereoEngine: the mesh is on {mesh.device}, the engine "
+                             f"on {self.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StereoEngine: CUDA is not available; pass "
                                "device='cpu' to run on the CPU")
@@ -112,10 +133,18 @@ class StereoEngine:
                 if self.precision.param_dtype != torch.float32 else ())
         cast_params(model, self.precision.param_dtype, keep)
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            replicated(mesh)(self.model)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _barrier(self):
+        """Synchronize the device, then (with a mesh) every rank."""
+        self._sync()
+        if self.mesh is not None and self.mesh.world_group is not None:
+            dist.barrier(group=self.mesh.world_group)
 
     def _images(self, img0, img1):
         return tuple(torch.as_tensor(np.asarray(i, np.float32)).to(self.device,
@@ -123,7 +152,22 @@ class StereoEngine:
                      for i in (img0, img1))
 
     def _forward(self, a, b):
-        """The model on device tensors, inside this engine's quant context."""
+        """The model on full device tensors, inside this engine's quant
+        context; with a mesh, this rank's shard of them, gathered after."""
+        if self.mesh is None or self.mesh.size == 1:
+            return self._forward_local(a, b)
+        h = a.shape[1]
+        sharding = image_sharding(self.mesh)
+        a, b = sharding.shard(a), sharding.shard(b)
+        if self.mesh.n_band > 1:
+            with band.sharded(self.mesh, band_rows(h, self.mesh.n_band)):
+                out = self._forward_local(a, b)
+        else:
+            out = self._forward_local(a, b)
+        full = sharding.gather(torch.cat([o.float() for o in out], dim=-1))
+        return full[..., 0:1], full[..., 1:2], full[..., 2:3]
+
+    def _forward_local(self, a, b):
         if not self.quantize:
             return self.model(a, b)
         if self.quant_scales is None:
@@ -139,7 +183,9 @@ class StereoEngine:
         """Record each int8 site's max|x| on (already padded) frames and set
         the static scales amax / 127, the max over all calls so far; then
         prequantize the weights. percentile (e.g. 99.9): that percentile of
-        |x| instead of the max. Returns the scales."""
+        |x| instead of the max. With a mesh every rank calibrates on the same
+        full frames, unsharded, and the scales must agree on every rank (it
+        raises if not). Returns the scales."""
         if not self.quantize:
             raise RuntimeError(f"calibrate(): a {self.precision_name} engine has no "
                                "int8 sites")
@@ -160,8 +206,22 @@ class StereoEngine:
                                  f"scales have {len(self.quant_scales)}")
             amax = np.maximum(amax, self.quant_scales * np.float32(127.0))
         self.quant_scales = (amax / np.float32(127.0)).astype(np.float32)
+        self._check_scales()
         self._prequantize()
         return self.quant_scales
+
+    def _check_scales(self):
+        """Raise unless every rank of the mesh holds these scales: one
+        all-reduce of the max of (scales, -scales)."""
+        m = self.mesh
+        if m is None or m.world_group is None:
+            return
+        own = torch.as_tensor(self.quant_scales, dtype=torch.float64)
+        hi, lo = all_reduce(m, torch.cat([own, -own]), m.world_group,
+                            dist.ReduceOp.MAX).chunk(2)
+        if not (torch.equal(hi, own) and torch.equal(-lo, own)):
+            raise RuntimeError("calibrate(): the int8 scales differ between the mesh's "
+                               f"ranks (largest gap {float((hi + lo).max())})")
 
     def _prequantize(self):
         quant.strip_model(self.model)
@@ -252,13 +312,16 @@ class StereoEngine:
         if self.quantize and self.quant_scales is None:
             self._auto_calibrate(lp, rp)  # set-up, outside the timed forward
         if n_repeat == 1:
-            self._sync()
+            self._barrier()
             t0 = time.perf_counter()
             out = self.forward_padded(lp, rp)
             self._sync()
             runtime_ms = (time.perf_counter() - t0) * 1e3
         else:
+            self._barrier()
             out, runtime_ms = self._repeat_forward(lp, rp, n_repeat)
+        if self.mesh is not None:  # the slowest rank's time
+            runtime_ms = max_over_ranks(self.mesh, runtime_ms)
         disp, occ, conf = (image_crop(o.cpu().numpy(), (h, w))[..., 0] for o in out)
         m = 100
         if h > 2 * m and w > 2 * m:
@@ -311,6 +374,7 @@ class StereoEngine:
         a, b = a.to(self.compute_dtype), b.to(self.compute_dtype)
         for _ in range(n_warmup):
             self._forward(a, b)
+        self._barrier()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -319,6 +383,10 @@ class StereoEngine:
         end.record()
         end.synchronize()
         dt = start.elapsed_time(end) / 1e3 / n_iter
+        out = {}
+        if self.mesh is not None:  # the mesh's rate: the slowest rank's time
+            dt = max_over_ranks(self.mesh, dt)
+            out = dict(mesh=list(self.mesh.shape), transport=self.mesh.transport)
         return dict(seconds_per_frame=dt / batch, fps=batch / dt,
                     height=height, width=width, batch=batch,
-                    device=torch.cuda.get_device_name(self.device))
+                    device=torch.cuda.get_device_name(self.device), **out)

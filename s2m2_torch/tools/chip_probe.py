@@ -10,6 +10,7 @@
     python3 s2m2_torch/tools/chip_probe.py requests --model S \
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--via-ops] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py calib [--n 20] [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py sensitivity [--seeds 4] [--out FILE]
 
 `fill`: kernel A in bf16 at head dim 32 with N = 1216 (S's 2D blocks) and at
 (B, 304, 128) (S's 1x scale), over a range of sequence counts B, with
@@ -105,6 +106,18 @@ of the maps, the remap, the engine call (`score_ms`) and the forward alone
 (`run()`'s own ms), so (c) and (d) say whether the host's numpy work slows
 the forward that follows it. Then one candidate under torch.profiler: the
 device's busy ms beside the candidate's wall ms.
+
+`sensitivity`: how far the unsharded S engine's outputs move under a 1e-6
+relative change of its input: the control that fixes chip_smoke.py phase
+12's float bounds. For each of phase 12's unsharded float cells (fp32;
+bf16; bf16 with two pairs a request; bf16 with the fused block) on phase
+12's 3 requests (seeded `stereo_pair`s, 1216x1024): every request served
+twice as it is (the second must repeat the first to the bit), then with
+its left image scaled by 1 + 1e-6 (phase 12's former control) and with
+each of `--seeds` seeded perturbations of it (every pixel times 1 + 1e-6
+u, u uniform in [-1, 1]). Each reading is taken over all 3 requests: the
+largest |d disp|, |d occ| and |d conf| and the mean |d disp|; the cell's
+line holds every reading and their maxima.
 
 Every result is one JSON line on stdout (and appended to `--out`).
 """
@@ -546,6 +559,54 @@ def cmd_requests(args):
         torch.cuda.empty_cache()
 
 
+# chip_smoke.py phase 12's unsharded float cells: (label, precision, fused
+# block, pairs a request), 3 requests each
+SENSITIVITY_CELLS = (("fp32", "fp32", False, 1), ("bf16", "bf16", False, 1),
+                     ("bf16 two pairs", "bf16", False, 2),
+                     ("bf16 fused", "bf16", True, 1))
+SENSITIVITY_REQUESTS = 3
+
+
+def cmd_sensitivity(args):
+    import torch
+    from s2m2_torch.demo._scenes import stereo_pair
+    from s2m2_torch.runtime.engine import StereoEngine
+    rng = np.random.default_rng(0)
+    pairs = [stereo_pair(rng, H, W, 16 + 8 * i) for i in range(2 * SENSITIVITY_REQUESTS)]
+    for label, precision, fused, per_request in SENSITIVITY_CELLS:
+        batches = [tuple(np.stack([p[v] for p in pairs[per_request * i:per_request * (i + 1)]])
+                         for v in (0, 1)) for i in range(SENSITIVITY_REQUESTS)]
+        eng = StereoEngine("S", precision=precision, seed=0, fused_block=fused)
+        eng.run(*batches[0])
+        refs = [eng.run(a, b)[:3] for a, b in batches]
+        repeat = max(float(np.abs(x - r).max()) for (a, b), ref in zip(batches, refs)
+                     for x, r in zip(eng.run(a, b)[:3], ref))
+
+        def reading(scale):
+            d = [[np.abs(x - r) for x, r in zip(eng.run(a * s, b)[:3], ref)]
+                 for (a, b), s, ref in zip(batches, scale, refs)]
+            out = {f"{name}_max": max(float(req[i].max()) for req in d)
+                   for i, name in enumerate(("disp", "occ", "conf"))}
+            out["disp_mean"] = float(np.mean([req[0].mean() for req in d]))
+            return out
+
+        readings = [dict(perturbation="scale 1 + 1e-6",
+                         **reading([np.float32(1 + 1e-6)] * len(batches)))]
+        for seed in range(args.seeds):
+            prng = np.random.default_rng(seed)
+            readings.append(dict(perturbation=f"seed {seed}", **reading(
+                [(1 + 1e-6 * prng.uniform(-1, 1, a.shape)).astype(np.float32)
+                 for a, _ in batches])))
+        emit({"probe": "sensitivity", "cell": label, "model": "S", "precision": precision,
+              "fused_block": fused, "pairs_per_request": per_request,
+              "requests": SENSITIVITY_REQUESTS, "repeat_max_abs": repeat, "readings": readings,
+              "max": {k: max(r[k] for r in readings) for k in readings[0]
+                      if k != "perturbation"},
+              "device": torch.cuda.get_device_name(0)}, args.out)
+        del eng
+        torch.cuda.empty_cache()
+
+
 def cmd_calib(args):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -856,6 +917,9 @@ def main():
     req.add_argument("--via-ops", action="store_true",
                      help="every kernel call through its custom op (this checkout only)")
     req.add_argument("--out")
+    sens = sub.add_parser("sensitivity")
+    sens.add_argument("--seeds", type=int, default=4)
+    sens.add_argument("--out")
     cal = sub.add_parser("calib")
     cal.add_argument("--n", type=int, default=20)
     cal.add_argument("--out")
@@ -882,6 +946,9 @@ def main():
             cmd_ot(args)
     elif args.cmd == "calib":
         cmd_calib(args)
+    elif args.cmd == "sensitivity":
+        with torch.inference_mode():
+            cmd_sensitivity(args)
     else:
         cmd_requests(args)
     return 0

@@ -24,13 +24,16 @@ def _bce(pred, target, eps=1e-6):
 
 
 def stereo_loss(disp, occ, conf, gt_disp, valid, gt_nonocc=None,
-                conf_threshold=4.0, w_disp=1.0, w_occ=0.5, w_conf=0.5):
+                conf_threshold=4.0, w_disp=1.0, w_occ=0.5, w_conf=0.5, n=None):
     """All inputs (B, H, W, 1); valid is a {0,1} mask of supervised pixels.
 
     Returns (total_loss, metrics dict). Occlusion supervision is skipped when
-    gt_nonocc is None (sparse datasets often lack it)."""
+    gt_nonocc is None (sparse datasets often lack it). n: the count of
+    supervised pixels to normalise by (default: this batch's, at least 1);
+    a data-parallel step gives the whole batch's, summed over its ranks."""
     valid = valid.float()
-    n = valid.sum().clamp(min=1.0)
+    if n is None:
+        n = valid.sum().clamp(min=1.0)
 
     err = (disp.float() - gt_disp.float()).abs()
     l_disp = (err * valid).sum() / n
@@ -57,21 +60,33 @@ def _downsample4(x):
     return x.reshape(b, h // 4, 4, w // 4, 4, c).mean(dim=(2, 4))
 
 
+def valid_counts(valid):
+    """(n, nq) float32: the supervised pixels at full resolution and on the
+    quarter grid, the denominators of `sequence_loss` (before their clamp at
+    1). A data-parallel step sums them over its ranks first: each rank's
+    loss is then its share of the whole batch's, and the shares add up."""
+    v = valid.float()
+    return torch.stack([v.sum(), (_downsample4(v) > 0.999).float().sum()])
+
+
 def sequence_loss(disp_seq, disp_final, occ, conf, gt_disp, valid,
-                  gt_nonocc=None, gamma=0.8, **kw):
+                  gt_nonocc=None, gamma=0.8, counts=None, **kw):
     """RAFT-style exponentially weighted sequence supervision.
 
     disp_seq: the per-refine-iteration quarter-resolution disparities in
     full-resolution px units (`S2M2.forward(..., return_aux=True)
     ['disp_seq']`, the OT/global init first). Each gets weight
     gamma^(N-i) against the 4x-downsampled ground truth; the final
-    full-resolution output carries the full `stereo_loss` (weight 1)."""
+    full-resolution output carries the full `stereo_loss` (weight 1).
+    counts: (n, nq) to normalise by in place of this batch's
+    (`valid_counts`)."""
+    n = None if counts is None else counts[0].clamp(min=1.0)
     total, metrics = stereo_loss(disp_final, occ, conf, gt_disp, valid,
-                                 gt_nonocc, **kw)
+                                 gt_nonocc, n=n, **kw)
     gt_q = _downsample4(gt_disp.float())
     # a quarter-res pixel is supervised only if all 16 source pixels were valid
     valid_q = (_downsample4(valid.float()) > 0.999).float()
-    nq = valid_q.sum().clamp(min=1.0)
+    nq = valid_q.sum().clamp(min=1.0) if counts is None else counts[1].clamp(min=1.0)
     n_seq = len(disp_seq)
     l_seq = 0.0
     for i, d in enumerate(disp_seq):

@@ -21,7 +21,15 @@ as the JAX step casts params inside `loss_fn` (not `autocast`, which keeps
 other ops in float32 than the JAX policy does). On the card the kernels
 A, B and C run in the forward and their backward recomputes their plain
 versions (ops/_grad.py); the fused block (D) and the int8 sites (E) raise
-under grad. No sharding here.
+under grad.
+
+Data parallel (`mesh`, n_data x 1): each data rank takes its slice of the
+batch. The loss normalises by the batch's supervised pixels, so the ranks
+first sum their counts (`loss.valid_counts`): each rank's loss is then its
+share of the whole batch's, the gradients are summed over the data group,
+and the clip sees the global gradient norm, so every rank takes the same
+step; the metrics are summed the same way. Band sharding in training
+raises (`BAND_TRAINING`).
 """
 from __future__ import annotations
 
@@ -29,9 +37,16 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from .loss import sequence_loss
+from ..parallel.mesh import all_reduce, data_slice, replicated
+from .loss import sequence_loss, valid_counts
 
 BATCH_KEYS = ("img0", "img1", "gt_disp", "valid", "gt_nonocc")
+BAND_TRAINING = (
+    "band-sharded training (a mesh with n_band > 1) is not ported: it needs the "
+    "backward rules of band sharding (the halo exchange's gradient sent back and "
+    "added into the neighbour's edge rows, the bottleneck gather's gradient "
+    "reduce-scattered, GroupNorm's statistics all-reduced in the backward, parameter "
+    "gradients summed over band and data); train on a DATAx1 mesh")
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
 
@@ -152,7 +167,8 @@ def make_loss_fn(model, compute_dtype=None):
     tensors. With a compute_dtype, params and images are cast inside the
     function, so gradients reach `params` in their own dtype."""
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, counts=None):
+        """counts: the (n, nq) to normalise by (`loss.valid_counts`)."""
         img0, img1 = batch["img0"], batch["img1"]
         if compute_dtype is not None:
             params = {k: v.to(compute_dtype) for k, v in params.items()}
@@ -160,27 +176,53 @@ def make_loss_fn(model, compute_dtype=None):
         disp, occ, conf, aux = functional_call(model, params, (img0, img1),
                                                {"return_aux": True})
         return sequence_loss(aux["disp_seq"], disp.float(), occ.float(), conf.float(),
-                             batch["gt_disp"], batch["valid"], batch.get("gt_nonocc"))
+                             batch["gt_disp"], batch["valid"], batch.get("gt_nonocc"),
+                             counts=counts)
     return loss_fn
 
 
-def value_and_grad(loss_fn, params, batch):
+def value_and_grad(loss_fn, params, batch, mesh=None):
     """(metrics, grads): the loss's metrics (detached) and its gradient with
-    respect to every entry of `params`."""
-    total, metrics = loss_fn(params, batch)
+    respect to every entry of `params`. With a data-parallel `mesh`, `batch`
+    is this rank's slice and both are the whole batch's (module docstring)."""
+    group = None if mesh is None else mesh.data_group
+    counts = None
+    if group is not None:
+        counts = all_reduce(mesh, valid_counts(batch["valid"]), group)
+    total, metrics = loss_fn(params, batch, counts)
     grads = torch.autograd.grad(total, list(params.values()))
-    return ({k: v.detach() for k, v in metrics.items()},
-            dict(zip(params, grads)))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is not None:
+        flat = all_reduce(mesh, torch.cat([g.reshape(-1).float() for g in grads]), group)
+        grads = [f.view_as(g).to(g.dtype)
+                 for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        summed = all_reduce(mesh, torch.stack([v.float() for v in metrics.values()]),
+                                group)
+        metrics = dict(zip(metrics, summed.unbind()))
+    return metrics, dict(zip(params, grads))
 
 
-def make_train_step(cfg, model, optimizer, compute_dtype=None):
+def shard_batch(batch, mesh):
+    """This data rank's slice of every (B, ...) entry of a batch dict."""
+    if mesh is None or mesh.n_data == 1:
+        return batch
+    return {k: data_slice(mesh, v) for k, v in batch.items()}
+
+
+def make_train_step(cfg, model, optimizer, compute_dtype=None, mesh=None):
     """train_step(batch) -> metrics: one optimizer step of `model`'s own
     parameters (the fp32 masters, updated in place) on a batch dict of NHWC
     float32 arrays or tensors {img0, img1, gt_disp, valid[, gt_nonocc]}.
     `optimizer` (from `make_optimizer`) is initialised on the parameters
-    unless it already holds a state. `cfg` is the model's configuration."""
+    unless it already holds a state. `cfg` is the model's configuration.
+    With a `mesh` (n_data x 1) every rank passes the whole batch and takes
+    its slice; the parameters are made equal on every rank first."""
     if model.cfg != cfg:
         raise ValueError("make_train_step: cfg is not the model's configuration")
+    if mesh is not None and mesh.n_band > 1:
+        raise NotImplementedError(BAND_TRAINING)
+    if mesh is not None:
+        replicated(mesh)(model)
     params = dict(model.named_parameters())
     if optimizer.state is None:
         optimizer.init(params)
@@ -188,7 +230,8 @@ def make_train_step(cfg, model, optimizer, compute_dtype=None):
     device = next(iter(params.values())).device
 
     def train_step(batch):
-        metrics, grads = value_and_grad(loss_fn, params, as_batch(batch, device))
+        metrics, grads = value_and_grad(loss_fn, params,
+                                        as_batch(shard_batch(batch, mesh), device), mesh)
         optimizer.update(params, grads)
         return metrics
     return train_step

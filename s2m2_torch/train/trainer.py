@@ -1,5 +1,5 @@
 """The training loop: data -> train step -> metrics and checkpoints, from
-`s2m2_tpu/train/trainer.py`, on one device (no mesh).
+`s2m2_tpu/train/trainer.py`, on one device or data-parallel over a mesh.
 
     model, optimizer, history = train(cfg, batches, num_steps=1000,
                                       compute_dtype=torch.bfloat16)
@@ -8,6 +8,12 @@ The model is the port's own `S2M2` module built on `device` (the inference
 engine runs under `inference_mode` and is not for training), with its
 parameters as the fp32 masters; the fused block stays off, so every
 scanline block runs through kernels A and B on the card.
+
+With `mesh` (`parallel.mesh.make_mesh(n_data, 1, ...)`, every rank running
+`train` on the same stream of batches) each data rank trains on its slice
+of every batch, and all ranks take the same step (train/step.py); only
+global rank 0 logs and writes checkpoints. A mesh with n_band > 1 raises
+NotImplementedError (`step.BAND_TRAINING`).
 """
 from __future__ import annotations
 
@@ -18,12 +24,12 @@ import torch
 from ..config import ModelConfig
 from ..models.init import init_params
 from ..models.s2m2 import S2M2
-from .step import make_optimizer, make_train_step
+from .step import BAND_TRAINING, make_optimizer, make_train_step
 
 
 def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
           checkpoint_dir=None, checkpoint_every=500, log_every=10, params=None,
-          log=print, warmup_steps=0, compute_dtype=None, device="cuda"):
+          log=print, warmup_steps=0, compute_dtype=None, device=None, mesh=None):
     """Run `num_steps` optimizer steps over `batches` (an iterator of batch
     dicts of NHWC float32 arrays or tensors).
 
@@ -35,7 +41,12 @@ def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
     epe, step, sec since the start) is kept every `log_every` steps and at
     the last; checkpoints (tools/checkpoint.py) are written at every
     `checkpoint_every`-th step after step 0 and at `num_steps` at the end.
+    `device` defaults to "cuda" (the mesh's device with a mesh).
     Returns (model, optimizer, history)."""
+    if mesh is not None and mesh.n_band > 1:
+        raise NotImplementedError(BAND_TRAINING)
+    if device is None:
+        device = "cuda" if mesh is None else mesh.device
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: CUDA is not available; pass device='cpu' to train "
@@ -44,7 +55,9 @@ def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
     model.load_state_dict(init_params(cfg, seed=seed) if params is None else params)
     model = model.to(device).train()
     optimizer = make_optimizer(lr=lr, warmup_steps=warmup_steps, total_steps=num_steps)
-    train_step = make_train_step(cfg, model, optimizer, compute_dtype=compute_dtype)
+    train_step = make_train_step(cfg, model, optimizer, compute_dtype=compute_dtype,
+                                 mesh=mesh)
+    lead = mesh is None or mesh.rank == 0
 
     history = []
     t0 = time.perf_counter()
@@ -57,10 +70,11 @@ def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
             m["step"] = step
             m["sec"] = time.perf_counter() - t0
             history.append(m)
-            log(f"step {step}: loss={m['loss']:.4f} epe={m['epe']:.3f}")
-        if checkpoint_dir and step and step % checkpoint_every == 0:
+            if lead:
+                log(f"step {step}: loss={m['loss']:.4f} epe={m['epe']:.3f}")
+        if lead and checkpoint_dir and step and step % checkpoint_every == 0:
             _save(checkpoint_dir, step, model, optimizer)
-    if checkpoint_dir:
+    if lead and checkpoint_dir:
         _save(checkpoint_dir, num_steps, model, optimizer)
     return model, optimizer, history
 

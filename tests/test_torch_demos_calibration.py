@@ -91,5 +91,9 @@ def test_train_demo_defaults(tmp_path, monkeypatch, capsys):
 
 
 def test_train_demo_refuses_mesh(monkeypatch, capsys):
+    """A mesh with bands (here 2x4) is refused before any rank starts: band
+    sharding in training is not ported (data parallel is, see
+    tests/test_torch_parallel_train.py)."""
     assert run_cli("train_demo", ["--mesh", "2x4", "--device", "cpu"], monkeypatch) != 0
-    assert "multi-device training is not ported" in capsys.readouterr().err
+    assert "band-sharded training (a mesh with n_band > 1) is not ported" in \
+        capsys.readouterr().err
