@@ -28,10 +28,21 @@ non-zero:
    route gives it, plus S's and L's widest, with seeded block weights from
    the port's own init, each record naming the instance
    `ops.fused_block.plan` chose, and, beside it, the port's unfused block on
-   the same rows (float32 bounds of A, B and D by split TF32);
+   the same rows (float32 bounds of A, B and D by split TF32); F (the int8
+   attention core of the int8_attn opt-in, 10 back-to-back calls a sample)
+   at the shapes one S int8_attn forward gives it (`int8_attn_shapes`: N =
+   304, 152, 76 and the 1216-token map), each row within two probability
+   quanta of its plain version (2 s_v pmax_row) plus the rounding, and at
+   most 1% of the elements beyond the rounding
+   (`ops.int8_attention.agreement`), its bound in int8 operations; then E's bf16-accumulator
+   epilogue (int8_acc_bf16) within one ulp of its plain version at three
+   S geometries (`E_ACC_BF16_CASES`), timed beside the int32 epilogue;
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
    every tests/golden/s2m2_*.npz against the reference outputs, with the
-   fused block off and then on (kernel D engaged);
+   fused block off and then on (kernel D engaged); then int8 and int8r,
+   and int8 with each opt-in (`GOLDEN_OPTINS`: the drift on the pair alone
+   and the mean over the pair and four 1e-6 relative changes of it, F
+   launched only with int8_attn);
 5. main path: StereoEngine("S") in fp32 and bf16 with seeded random weights
    serving 8 requests each on 1216x1024 pairs (the right image is the left
    shifted by a known disparity, plus noise); the kernels' launch counts are
@@ -45,10 +56,13 @@ non-zero:
 7. int8 path: StereoEngine("XL", precision="int8") at 1216x1024 with the
    same seeded weights: calibrate on the first pair (decimated to 512 px,
    as run() does), then 4 requests on phase 5's pairs, then one profiled
-   forward; then S in int8a and int8r, 2 requests each. Each run checks A,
-   B and C against the counts of phase 5/6, D at 0 (the fused route is
-   off), every quantized GEMM of the calibration pass served by kernel E,
-   and E's launches against the forward's own record of its sites;
+   forward; then S in int8a and int8r, 2 requests each; then S int8 alone,
+   with int8_attn and with int8_acc_bf16, 8 requests each, with their mean
+   |d disp| against phase 5's S fp32 and bf16 disparities. Each run checks
+   A, B and C against the counts of phase 5/6 (A and B at 0 with
+   int8_attn, whose cores run on F), D at 0 (the fused route is off),
+   every quantized GEMM of the calibration pass served by kernel E, and
+   E's and F's launches against the forward's own record of its sites;
 8. calibration path: online self-calibration as a user runs it, with no
    OpenCV: StereoEngine("S", precision="bf16") on phase 5's first pair as a
    raw uint8 pair under a synthetic 1216x1024 sensor calibration (5
@@ -149,9 +163,21 @@ non-zero:
    band-sharded conv geometries (row padding 0). Then data-parallel
    training at 2x1 (CH32, batch 2, 3 steps) against one process: loss
    within 1e-4 relative, each gradient leaf within 1e-3 of its max + 1e-9.
-   One line per cell and rank: ms per
-   request (the slowest rank's) beside the unsharded median, launches and
-   collectives per forward and the bytes each kind moved.
+   Then a band-sharded training step of S on 1x2 (`_band_train_check`:
+   256x384, batch 2, bf16 over fp32 masters, then fp32) against the
+   unsharded step: per rank the forward's and backward's collectives equal
+   `band.expected_counts(cfg, backward=True)` and A/B/C launch the
+   unsharded step's counts; fp32 loss within 1e-4 relative, gradient 1e-5
+   relative L2, each leaf within 1e-3 of its max + 1e-9 (or, a leaf under
+   1e-3 of the whole norm, 2e-6 of the whole norm); bf16 loss and gradient
+   (relative L2) within twice what a 1e-6 relative change of the left
+   images moves the unsharded bf16 step (at least 1e-4 and 1e-3), and each
+   leaf within four times that change of the leaf + one bf16 ulp (2^-7) of
+   the ranks' summed |partial gradients| (each partial is a bf16 reduction
+   over its band, rounded before the sum) + 1e-6 of the whole norm.
+   One line per cell and rank: ms per request (the slowest rank's) beside
+   the unsharded median, launches and collectives per forward and the
+   bytes each kind moved.
 
 Kernel E (int8 quantize_pack + the wgmma int8 GEMM) is held against its
 plain version in phase 3 at the TPU probe's shape, and after phase 7 at
@@ -207,6 +233,8 @@ REPLACES = {
     "fused_basic_attn_block": "s2m2_tpu/ops/fused_block.py:174",
     "int8_quantize_pack": "scripts/probe_pallas_int8.py:30",
     "int8_gemm": "scripts/probe_pallas_int8.py:45",
+    # no Pallas kernel: the int8_attn opt-in's core, which XLA compiles
+    "int8_attention": "s2m2_tpu/models/quant.py:369",
 }
 SOURCES = {
     "scanline_attention": "s2m2_torch/csrc/scanline_attention.cu",
@@ -215,12 +243,21 @@ SOURCES = {
     "fused_basic_attn_block": "s2m2_torch/csrc/fused_basic_attn_block.cu",
     "int8_quantize_pack": "s2m2_torch/csrc/int8_gemm.cu",
     "int8_gemm": "s2m2_torch/csrc/int8_gemm.cu",
+    "int8_attention": "s2m2_torch/csrc/int8_attention.cu",
 }
 N_INT8_S_REQUESTS = 2
 # the JAX package's int8 drift bounds (tests/test_quant.py:186-191)
 GOLDEN_INT8 = (("s2m2_c32_ntr1.npz", "int8", 0.01), ("s2m2_c32_ntr1_neg_up.npz", "int8", 0.08),
                ("s2m2_c32_ntr1.npz", "int8r", 0.015),
                ("s2m2_c32_ntr1_neg_up.npz", "int8r", 0.09))
+# the int8 opt-ins on the same fixtures, at the JAX package's bounds
+# (tests/test_quant.py:186-191 with int8_attn, :211-218 with int8_acc_bf16);
+# held both on the pair alone and as the mean over the pair and four 1e-6
+# relative changes of it (tests/test_torch_int8_optins.py)
+GOLDEN_OPTINS = (("s2m2_c32_ntr1.npz", "int8_attn", 0.01),
+                 ("s2m2_c32_ntr1_neg_up.npz", "int8_attn", 0.08),
+                 ("s2m2_c32_ntr1.npz", "int8_acc_bf16", 0.02),
+                 ("s2m2_c32_ntr1_neg_up.npz", "int8_acc_bf16", 0.09))
 OUT_DIR = None  # --out DIR: also keep the run's records there
 # phase 9: S training at the JAX loader's default crop
 # (s2m2_tpu/train/data.py:64, directory_batches), batch 2, 20 steps; XL 3
@@ -275,6 +312,31 @@ def main_path_shapes(cfg, h, w, fused_block=False):
             "fused_basic_attn_block": blocks}
 
 
+def int8_attn_shapes(cfg, h, w):
+    """The Counter of q shapes (B, N, d) that one int8_attn forward at (h, w)
+    (batch 1) gives kernel F; each call's k and v have q's shape. The
+    scanline blocks with one head run each core whole (self on both views,
+    cross as two calls of one view each), the multi-head ones one head at a
+    time; the 2D blocks without PE, whole: the MRT's (cross and self), the
+    pyramid's decoder blocks, the refiners' bottlenecks."""
+    h4, w4, c, nh, ntr = h // 4, w // 4, cfg.feature_channels, cfg.num_heads, \
+        cfg.num_transformer
+    tokens = (h4 // 8) * (w4 // 8)
+    shapes = Counter()
+    for hs, ws, ds, heads in ((h4, w4, c, nh), (h4 // 2, w4 // 2, c, 2 * nh),
+                              (h4 // 4, w4 // 4, 2 * c, 4 * nh)):
+        d = ds // heads
+        shapes[(2 * hs, ws, d)] += 2 * ntr * heads          # self, both views
+        shapes[(hs, ws, d)] += 2 * 2 * ntr * heads          # cross, x->y and y->x
+    g, d = 8 * nh, 2 * c // (8 * nh)
+    shapes[(2 * g, tokens, d)] += 4 * ntr                   # MRT 2D self
+    shapes[(g, tokens, d)] += 2 * 4 * ntr                   # MRT 2D cross
+    shapes[(2 * 8, tokens, 2 * c // 8)] += 2 * ntr          # pyramid decoder blocks
+    shapes[(8, tokens, c // 8)] += 2                        # global refiner UNet
+    shapes[(8, tokens, 2 * c // 8)] += 2 * cfg.refine_iter  # local refiner UNet
+    return shapes
+
+
 def time_ms(fn, n=20, warmup=3, reps=1):
     """Median over n CUDA-event timings of `reps` back-to-back calls, per
     call, after warmup calls. With reps = 1 the time includes the call's
@@ -325,6 +387,8 @@ def cost(name, shape, dtype_name):
         return (2 * b * h * w * c + 2 * b * h * w * w) * isz, 2 * b * h * w * w * c
     b, n, d = shape
     ndir = 2 if name == "scanline_cross_attention" else 1
+    # F: q, k, v read and the output written once in their dtype; its two
+    # products are int8 operations
     return ndir * 4 * b * n * d * isz, ndir * 4 * b * n * n * d
 
 
@@ -334,7 +398,7 @@ def bound(name, shape, dtype_name):
     in float32) and, for kernel C, its exponentials over the SMs'
     exponential rate at their maximum clock; the bound is the largest."""
     nbytes, flops = cost(name, shape, dtype_name)
-    rate = PEAK_FLOPS[dtype_name]
+    rate = PEAK_FLOPS["int8" if name == "int8_attention" else dtype_name]
     if name in SPLIT_TF32 and dtype_name == "float32":
         rate = SPLIT_TF32_FLOPS
     parts = (1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate)
@@ -388,7 +452,16 @@ def phase_build():
 
 
 def _max_err_ok(got, ref, dtype_name, kind):
-    """(max|diff|, bound description, ok) for one output."""
+    """(max|diff|, bound description, ok) for one output. Kind "quanta"
+    (kernel F): `ref` is F's inputs (q, k, v, s_q, s_k, s_v), and
+    `ops.int8_attention.agreement` holds the output to its plain version
+    (each row within two probability quanta, 2 s_v pmax_row, plus the
+    rounding; few elements beyond the rounding)."""
+    if kind == "quanta":
+        from s2m2_torch.ops import int8_attention as ia
+        res = ia.agreement(got, *ref)
+        return res["max_abs_err"], f"{res['bound']}; share {res['flipped_share']:.3e}", \
+            res["ok"]
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     err = float(diff.max())
@@ -430,6 +503,14 @@ def _kernel_case(name, shape, dtype, g, **kw):
 
     dev = torch.device("cuda")
     unfused = None
+    if name == "int8_attention":
+        from s2m2_torch.ops import int8_attention as ia
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) * f
+                   for f in (1.0, 1.5, 2.0))
+        sc = [float(x.float().abs().max()) / 127 for x in (q, k, v)]
+        checks = [("quanta", ia.int8_attention(q, k, v, *sc), (q, k, v, *sc))]
+        return checks, lambda: ia.int8_attention(q, k, v, *sc), \
+            lambda: ia.int8_attention_plain(q, k, v, *sc), None, None, None
     if name == "fused_basic_attn_block":
         n, w, c, heads = shape
         blk = seeded_block(c, heads).to(dev, dtype)
@@ -504,7 +585,7 @@ def phase_kernels(shapes, xl_shapes):
                                  "ok": ok})
                     if not ok:
                         failures.append((name, shape, dn, kind, err, limit))
-                reps = 10 if name in XL_TIMED else 1
+                reps = 10 if name in (*XL_TIMED, "int8_attention") else 1
                 rec = {"kernel": name, "model": model, "shape": list(shape), "dtype": dn,
                        "per_forward": per_forward, "checks": errs,
                        "ms": time_ms(kern, reps=reps), "plain_ms": time_ms(plain, reps=reps),
@@ -525,6 +606,80 @@ def phase_kernels(shapes, xl_shapes):
     if failures:
         raise AssertionError(f"kernel/plain disagreement: {failures}")
     return results
+
+
+# kernel E's bf16-accumulator epilogue (int8_acc_bf16): (input, conv geometry
+# or None, N, output dtype) at S's shapes: an MRT linear at 1/4 (the 2 x 256 x
+# 304 tokens of both views, K = N = 128), a UNet 3x3 conv at 1/4 (taps by
+# TMA) and a stride-2 3x3 conv (taps gathered), the last with float32 output
+E_ACC_BF16_CASES = (((155648, 128), None, 128, "bfloat16"),
+                    ((2, 128, 256, 304), (3, 3, 1, 1, 1, 1), 128, "bfloat16"),
+                    ((1, 64, 128, 152), (3, 3, 2, 2, 1, 1), 64, "float32"))
+
+
+def phase_e_acc_bf16():
+    """Kernel E with the bf16-accumulator epilogue against its plain version
+    (within one ulp of the output dtype) at E_ACC_BF16_CASES, timed (10
+    back-to-back calls) beside the same call with the int32 epilogue, the
+    plain version and, for rows, torch._int_mm (which the port never calls);
+    bound: the int8 operands, the output and the scales once, and 2 M N K
+    operations at the int8 rate."""
+    import torch
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device="cuda").manual_seed(0)
+    recs = []
+    for shape, conv, n, dn in E_ACC_BF16_CASES:
+        dt = getattr(torch, dn)
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        inv = ig.inv_scale(float(x.float().abs().max()) / 127.0)
+        if conv is None:
+            a = ig.quantize_pack(x, inv)
+            depth, nchw, m = a.shape[1], None, a.shape[0]
+        else:
+            a = ig.quantize_pack(x, inv, nhwc=True)
+            depth = conv[0] * conv[1] * a.shape[3]
+            ho, wo = ig.conv_out_hw(shape[2], shape[3], conv)
+            nchw, m = (shape[0], ho, wo), shape[0] * ho * wo
+        w = torch.randint(-127, 128, (n, depth), generator=g, device="cuda", dtype=torch.int8)
+        s_w = torch.rand((n,), generator=g, device="cuda") * 1e-3
+        bias = torch.randn((n,), generator=g, device="cuda")
+        def call(acc_bf16):  # this iteration's operands
+            return ig.int8_gemm(a, w, s_w, 1 / inv, bias, dt, conv=conv,  # noqa: B023
+                                nchw=nchw, acc_bf16=acc_bf16)  # noqa: B023
+        got = call(True)
+        want = ig.int8_gemm_plain(a, w, s_w, 1 / inv, bias, dt, conv=conv, acc_bf16=True)
+        if nchw is not None:
+            want = ig._rows_to_nchw(want, nchw)
+        diff = (got.float() - want.float()).abs()
+        big = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - (7 if dt == torch.bfloat16 else 23))
+        ok = bool((diff <= ulp).all())
+        lib = None
+        if conv is None:
+            wt = w.t()
+            lib = _device_ms(lambda: torch._int_mm(a, wt))  # noqa: B023
+        nbytes = m * depth + n * depth + m * n * dt.itemsize + 8 * n
+        ops = 2 * m * n * depth
+        recs.append({"phase": "kernels", "kernel": "int8_gemm", "epilogue": "acc_bf16",
+                     "input": list(shape), "conv": conv, "n": n, "out": dn, "ok": ok,
+                     "max_abs_err": float(diff.max()), "bound": "<= 1 ulp of the output",
+                     "ms": _device_ms(lambda: call(True)),  # noqa: B023
+                     "ms_int32_epilogue": _device_ms(lambda: call(False)),  # noqa: B023
+                     "plain_ms": time_ms(lambda: ig.int8_gemm_plain(  # noqa: B023
+                         a, w, s_w, 1 / inv, bias, dt, conv=conv, acc_bf16=True), n=3,
+                         warmup=1),
+                     "library_ms": lib,
+                     "bound_ms": 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_FLOPS["int8"]),
+                     "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_FLOPS["int8"]
+                     else "operations"})
+        emit(recs[-1])
+        del x, a, w, got, want, diff, big, ulp
+    torch.cuda.empty_cache()
+    bad = [r for r in recs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"E's bf16-accumulator epilogue disagrees with its plain "
+                             f"version: {bad}")
+    return recs
 
 
 def golden_fixture(path):
@@ -563,6 +718,34 @@ def phase_golden_int8():
               "launches": counts, "ok": ok})
         if not ok:
             raise AssertionError(f"golden {precision} failed on {fixture}: EPE {epe}, "
+                                 f"launches {counts}")
+    up, down = np.float32(1 + 1e-6), np.float32(1 - 1e-6)
+    for fixture, optin, bound in GOLDEN_OPTINS:
+        path = ROOT / "tests" / "golden" / fixture
+        cfg, img0, img1, refs = golden_fixture(path)
+        epes, counts = [], None
+        for a, b in ((img0, img1), (img0 * up, img1), (img0 * down, img1),
+                     (img0, img1 * up), (img0, img1 * down)):
+            eng = StereoEngine(cfg, checkpoint=str(path), precision="int8", device="cuda",
+                               **{optin: True})
+            eng.calibrate(a, b)
+            _build.reset_launch_counts()
+            disp = eng.forward_padded(a, b)[0].cpu().numpy()
+            counts = counts or {k: _build.launch_counts[k] for k in (*E_KERNELS,
+                                                                    "int8_attention")}
+            if not np.isfinite(disp).all():
+                raise AssertionError(f"golden int8 {optin} on {fixture}: not finite")
+            epes.append(float(np.abs(disp - refs[0]).mean()))
+        f_ok = counts["int8_attention"] > 0 if optin == "int8_attn" else \
+            counts["int8_attention"] == 0
+        ok = bool(np.mean(epes) < bound and epes[0] < bound and
+                  min(counts[k] for k in E_KERNELS) > 0 and f_ok)
+        emit({"phase": "golden_int8", "fixture": fixture, "precision": "int8",
+              "optin": optin, "epe": float(np.mean(epes)), "epe_pair": epes[0],
+              "epe_runs": epes, "bound": bound, "sites": len(eng.quant_scales),
+              "launches": counts, "ok": ok})
+        if not ok:
+            raise AssertionError(f"golden int8 {optin} failed on {fixture}: EPE {epes}, "
                                  f"launches {counts}")
 
 
@@ -691,10 +874,10 @@ def phase_main_path(shapes, pairs):
     from s2m2_torch.runtime.engine import StereoEngine
 
     per_forward = {k: sum(v.values()) for k, v in shapes.items()}
-    launches, medians = Counter(), {}
+    launches, medians, disps = Counter(), {}, {}
     for precision in ("fp32", "bf16"):
         eng = StereoEngine("S", precision=precision, seed=0)
-        ms, _, counts, peak = serve(eng, f"S {precision}", pairs, per_forward)
+        ms, disps[precision], counts, peak = serve(eng, f"S {precision}", pairs, per_forward)
         launches.update(counts)
         med = medians[f"S {precision}"] = float(np.median(ms))
         emit(profile_forward(eng, precision, *pairs[0]))
@@ -705,7 +888,7 @@ def phase_main_path(shapes, pairs):
               "benchmark": eng.benchmark(H, W, n_warmup=1, n_iter=5)})
         del eng
         torch.cuda.empty_cache()
-    return launches, medians
+    return launches, medians, disps
 
 
 def phase_xl(pairs, medians):
@@ -798,10 +981,12 @@ def _int8_counts(eng, label, counts, n_requests):
     log = quant.last_log()
     sites = sum(r["kind"] == "gemm_site" for r in log)
     per = {"int8_quantize_pack": sum(r["kind"] == "pack" for r in log),
-           "int8_gemm": sum(r["kind"] == "gemm" for r in log)}
-    if sites != eng.quant_gemms or min(per.values()) <= 0:
+           "int8_gemm": sum(r["kind"] == "gemm" for r in log),
+           "int8_attention": sum(r["kind"] == "attention" for r in log)}
+    if sites != eng.quant_gemms or min(per[k] for k in E_KERNELS) <= 0 or \
+            (per["int8_attention"] > 0) != eng.quant_policy["attn"]:
         raise AssertionError(f"{label}: {sites} quantized GEMMs in the forward, "
-                             f"{eng.quant_gemms} in calibration")
+                             f"{eng.quant_gemms} in calibration; launches {per}")
     wide = [r["in_shape"] for r in log if r["kind"] == "pack" and r["layout"] == "im2col"
             and ig.implicit(r["in_shape"][1])]
     if wide:  # every conv with C >= 32 runs as an implicit GEMM, without im2col rows
@@ -813,26 +998,35 @@ def _int8_counts(eng, label, counts, n_requests):
     return per, log
 
 
-def phase_int8(shapes, pairs, xl_bf16_disps):
+def phase_int8(shapes, f_shapes, pairs, xl_bf16_disps, s_disps):
     """XL int8 at 1216x1024 (4 requests, profiled), then S int8a and int8r
-    (2 requests each). Returns (launches, the XL forward's site log, the XL
-    engine's calibrated scales, which phase 10 exports)."""
+    (2 requests each), then S int8 alone, with int8_attn and with
+    int8_acc_bf16 (8 requests each, their disparities against phase 5's S
+    fp32 and bf16 ones, `s_disps`; F's launches a forward from `f_shapes`,
+    `int8_attn_shapes`). Returns (launches, the XL forward's site
+    log, the XL engine's calibrated scales, which phase 10 exports)."""
     import torch
     from s2m2_torch.runtime.engine import StereoEngine
 
     launches = Counter()
     s_forward = {k: sum(v.values()) for k, v in shapes.items()}
-    runs = [("XL", "int8", pairs[:N_XL_REQUESTS], XL_LAUNCHES[False]),
-            ("S", "int8a", pairs[:N_INT8_S_REQUESTS], s_forward),
-            ("S", "int8r", pairs[:N_INT8_S_REQUESTS], s_forward)]
+    # with int8_attn every attention core without PE runs on F, none on A or B
+    f_forward = {**s_forward, "scanline_attention": 0, "scanline_cross_attention": 0,
+                 "int8_attention": sum(f_shapes.values())}
+    runs = [("XL", "int8", pairs[:N_XL_REQUESTS], XL_LAUNCHES[False], {}),
+            ("S", "int8a", pairs[:N_INT8_S_REQUESTS], s_forward, {}),
+            ("S", "int8r", pairs[:N_INT8_S_REQUESTS], s_forward, {}),
+            ("S", "int8", pairs, s_forward, {}),
+            ("S", "int8", pairs, f_forward, {"int8_attn": True}),
+            ("S", "int8", pairs, s_forward, {"int8_acc_bf16": True})]
     xl_log = xl_scales = None
-    for model, precision, run_pairs, per_forward in runs:
-        eng = StereoEngine(model, precision=precision, seed=0)
+    for model, precision, run_pairs, per_forward, optins in runs:
+        eng = StereoEngine(model, precision=precision, seed=0, **optins)
         t0 = time.perf_counter()
         left, right = run_pairs[0]
         eng._auto_calibrate(left[None], right[None])  # what run() does first
         calib_s = time.perf_counter() - t0
-        label = f"{model} {precision}"
+        label = " ".join([model, precision, *optins])
         ms, disps, counts, peak = serve(eng, label, run_pairs, per_forward)
         per, log = _int8_counts(eng, label, counts, len(run_pairs))
         launches.update(counts)
@@ -842,7 +1036,11 @@ def phase_int8(shapes, pairs, xl_bf16_disps):
                "median_ms": med, "fps": 1e3 / med, "max_memory_allocated": peak,
                "calibration_s": calib_s, "sites": len(eng.quant_scales),
                "quantized_gemms": eng.quant_gemms, "e_launches_per_forward": per,
-               "launches": counts}
+               "launches": counts, "optins": sorted(optins)}
+        if model == "S" and precision == "int8":
+            for ref in ("fp32", "bf16"):
+                rec[f"mean_abs_disp_diff_vs_{ref}_px"] = float(np.mean(
+                    [np.abs(a - b).mean() for a, b in zip(disps, s_disps[ref])]))
         if model == "XL":
             xl_log, xl_scales = log, eng.quant_scales
             delta = [float(np.abs(a - b).mean()) for a, b in zip(disps, xl_bf16_disps)]
@@ -1546,7 +1744,8 @@ def phase_train(pair):
 # run in the same order, so 0.0 is expected)
 N_EXPORT_REQUESTS = {"S": N_REQUESTS, "XL": N_XL_REQUESTS}
 EXPORT_DISP_BOUND = 1e-3
-NOT_LAUNCHED = {"fused_basic_attn_block": 0, "int8_quantize_pack": 0, "int8_gemm": 0}
+NOT_LAUNCHED = {"fused_basic_attn_block": 0, "int8_quantize_pack": 0, "int8_gemm": 0,
+                "int8_attention": 0}
 
 
 def _synced_ms(fn, *args):
@@ -2118,6 +2317,184 @@ def _parallel_train_check(mesh, lead):
     return rec
 
 
+# phase 12's band-sharded training step: S at full width, 256x384, batch 2
+BAND_TRAIN_H, BAND_TRAIN_W, BAND_TRAIN_BATCH = 256, 384, 2
+
+
+def _band_grad_checks(got, ref, ctl=None, partials=None):
+    """Phase 12's per-leaf rule for the band-sharded step's gradients `got`
+    against the unsharded step's `ref` (float32 tensors by name). Without a
+    control (fp32): each leaf within 1e-3 of its max |g| + 1e-9, or, a leaf
+    whose norm is below 1e-3 of the whole gradient's (differences of nearly
+    equal terms at initialisation), within 2e-6 of the whole norm in L2
+    (the whole gradient's own error was 6.1e-7 of it on the H100).
+    With `ctl`, the unsharded step's gradients under a 1e-6 relative change
+    of the input, and `partials`, the sum over ranks of |each rank's
+    gradient| (bf16): each leaf's L2 change within four times the control's
+    change of the same leaf, plus one bf16 ulp (2^-7) of the partials' L2,
+    plus 1e-6 of the whole norm. Each rank's partial gradient is a bf16
+    reduction over its band, rounded before the ranks' sum, where the
+    unsharded step reduces and rounds once: a leaf whose band partials
+    cancel (a bias whose output gradient changes sign between the bands)
+    differs by about an ulp of the partials, not of the leaf, and a 1e-6
+    input change leaves such a rounding where it was (control 0)."""
+    norm = sum(float(v.double().square().sum()) for v in ref.values()) ** 0.5
+    bad, near_zero, near_worst, shares = [], [], 0.0, []
+    for k, g in ref.items():
+        d = (got[k] - g).double()
+        d_l2 = float(d.square().sum()) ** 0.5
+        if ctl is not None:
+            c_l2 = float((ctl[k] - g).double().square().sum()) ** 0.5
+            p_l2 = float(partials[k].double().square().sum()) ** 0.5
+            limit = 4 * c_l2 + 2 ** -7 * p_l2 + 1e-6 * norm
+            shares.append((d_l2 / limit, k, d_l2, c_l2, p_l2))
+            if d_l2 > limit:
+                bad.append(k)
+            continue
+        g_l2 = float(g.double().square().sum()) ** 0.5
+        limit = 1e-3 * float(g.abs().max()) + 1e-9
+        if g_l2 < 1e-3 * norm:
+            near_zero.append(k)
+            near_worst = max(near_worst, d_l2 / norm)
+            if float(d.abs().max()) > limit and d_l2 > 2e-6 * norm:
+                bad.append(k)
+        else:
+            shares.append((float(d.abs().max()) / limit, k))
+            if float(d.abs().max()) > limit:
+                bad.append(k)
+    rec = {"leaves_over_bound": bad, "worst_leaves_share_of_bound": sorted(shares)[-3:]}
+    if ctl is None:
+        rec.update(near_zero_leaves=len(near_zero), near_zero_worst_l2_of_norm=near_worst)
+    return rec
+
+
+def _band_train_check(mesh, lead):
+    """One training step of S over the 1x2 mesh (each rank a band of 128 of
+    the 256 rows) in bf16 over fp32 masters, then in fp32, on a synthetic
+    batch of 2 at 256x384; on the lead rank the same step unsharded, and,
+    as the control of bf16's intrinsic sensitivity, the unsharded bf16 step
+    with the left images times 1 + 1e-6. Per rank: the band collectives of
+    the step's forward and backward against `band.expected_counts(cfg,
+    backward=True)`, and A, B and C's launches against the unsharded step's.
+    Bounds on the lead rank (`_band_grad_checks`): fp32 loss within 1e-4
+    relative, the whole gradient within 1e-5 relative L2, each gradient leaf
+    within 1e-3 of its max |g| + 1e-9 (phase 9's card bound) or, a leaf whose
+    norm is below 1e-3 of the whole gradient's, within 2e-6 of the whole
+    norm (L2); bf16 loss and whole gradient (relative L2) within the larger
+    of (1e-4, 1e-3) and twice the control's change, and each leaf (L2)
+    within four times the control's change of that leaf + one bf16 ulp
+    (2^-7) of the ranks' summed |partial gradients| of it + 1e-6 of the
+    whole norm."""
+    import torch
+    from s2m2_torch.config import get_config
+    from s2m2_torch.ops import _build
+    from s2m2_torch.parallel import band
+    from s2m2_torch.parallel.mesh import all_reduce
+    from s2m2_torch.train.loss import valid_counts
+    from s2m2_torch.train import step as tstep
+    from s2m2_torch.train.data import synthetic_stereo_batches
+
+    cfg = get_config("S")
+    batch = next(synthetic_stereo_batches(batch=BAND_TRAIN_BATCH, height=BAND_TRAIN_H,
+                                          width=BAND_TRAIN_W, max_disp=32, seed=0,
+                                          n_batches=1))
+    dev = mesh.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda _=None: None)
+
+    def step(m, dtype, b):
+        model = _seeded_model(cfg, dev)
+        params = dict(model.named_parameters())
+        part = tstep.as_batch(tstep.shard_batch(b, m), dev)
+        band.reset_counts()
+        _build.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        metrics, g = tstep.value_and_grad(tstep.make_loss_fn(model, dtype), params, part, m,
+                                          tstep.batch_rows(b, m))
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"loss": float(metrics["loss"]), "ms": ms,
+                "grads": {k: v.float().cpu() for k, v in g.items()},
+                "launches": {k: v for k, v in _build.launch_counts.items() if v},
+                "collectives": band.last_counts()["counts"]}
+
+    def partials(m, dtype, b):
+        """The sum over ranks of |each rank's own gradient| (float32, by
+        name): the step of `tstep.value_and_grad` up to its world-group sum,
+        summing magnitudes instead."""
+        model = _seeded_model(cfg, dev)
+        params = dict(model.named_parameters())
+        part = tstep.as_batch(tstep.shard_batch(b, m), dev)
+        counts = all_reduce(m, valid_counts(part["valid"]), m.world_group)
+        with band.sharded(m, tstep.batch_rows(b, m)):
+            total, _ = tstep.make_loss_fn(model, dtype)(params, part, counts)
+        grads = torch.autograd.grad(total, list(params.values()))
+        flat = all_reduce(m, torch.cat([g.reshape(-1).float().abs() for g in grads]),
+                          m.world_group)
+        return {k: f.view_as(g).float().cpu()
+                for k, f, g in zip(params, flat.split([g.numel() for g in grads]), grads)}
+
+    def rel_l2(a, b):
+        num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
+        return (num / sum(float(v.double().square().sum()) for v in b.values())) ** 0.5
+
+    expected = band.expected_counts(cfg, backward=True)
+    recs, failed = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        t0 = time.perf_counter()
+        got = step(mesh, dtype, batch)
+        mags = partials(mesh, dtype, batch) if dtype == torch.bfloat16 else None
+        rec = {"phase": "parallel", "cell": f"train band 1x2 {dn}", "mesh": list(mesh.shape),
+               "config": f"S, {BAND_TRAIN_H}x{BAND_TRAIN_W}, batch {BAND_TRAIN_BATCH}, "
+                         f"{dn} over fp32 masters", "loss": got["loss"],
+               "ms_per_step": got["ms"], "launches": got["launches"],
+               "collectives_per_step": got["collectives"],
+               "collectives_expected": expected}
+        problems = [] if got["collectives"] == expected else ["collective counts"]
+        if lead:
+            ref = step(None, dtype, batch)
+            rec.update(single_loss=ref["loss"], single_ms_per_step=ref["ms"],
+                       single_launches=ref["launches"],
+                       loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                       grad_rel_l2=rel_l2(got["grads"], ref["grads"]))
+            if dev.type == "cuda" and any(got["launches"].get(k, 0) !=
+                                          ref["launches"].get(k, 0) or
+                                          not got["launches"].get(k) for k in ABC):
+                problems.append("A/B/C launches per step")
+            ctl = None
+            if dtype == torch.bfloat16:
+                pert = {**batch, "img0": batch["img0"] * np.float32(1 + 1e-6)}
+                ctl = step(None, dtype, pert)
+                rec["control_loss_rel"] = abs(ctl["loss"] - ref["loss"]) / abs(ref["loss"])
+                rec["control_grad_rel_l2"] = rel_l2(ctl["grads"], ref["grads"])
+                ctl = ctl["grads"]
+            rec.update(_band_grad_checks(got["grads"], ref["grads"], ctl, mags))
+            if dtype == torch.float32:
+                rec["bounds"] = {"loss_rel_err": 1e-4, "grad_rel_l2": 1e-5,
+                                 "leaf": "1e-3 max|g| + 1e-9, or (a leaf under 1e-3 of the "
+                                         "whole norm) 2e-6 of the whole norm"}
+            else:
+                rec["bounds"] = {"loss_rel_err": max(1e-4, 2 * rec["control_loss_rel"]),
+                                 "grad_rel_l2": max(1e-3, 2 * rec["control_grad_rel_l2"]),
+                                 "leaf": "4 x the control's change of the leaf + 2^-7 "
+                                         "of the ranks' summed |partials| + 1e-6 of the "
+                                         "whole norm"}
+            ok = rec["loss_rel_err"] <= rec["bounds"]["loss_rel_err"] and \
+                rec["grad_rel_l2"] <= rec["bounds"]["grad_rel_l2"] and \
+                not rec["leaves_over_bound"]
+            if not ok:
+                problems.append("loss or gradients against the unsharded step")
+        rec["ok"] = not problems
+        rec["cell_s"] = time.perf_counter() - t0
+        recs.append(rec)
+        if problems:
+            failed.append((rec["cell"], problems))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs, failed
+
+
 def rank_main(argv):
     """`chip_smoke.py --rank R --world N --init ADDR --backend B [--device
     D]`: one rank of phase 12 (D: cuda:0 under gloo, cuda:R under NCCL, or
@@ -2241,6 +2618,11 @@ def rank_main(argv):
     print(json.dumps(train_rec), flush=True)
     if train_rec.get("ok") is False:
         failed.append(("train 2x1", ["loss or gradients"]))
+    band_recs, band_failed = _band_train_check(meshes[(1, 2)], lead)
+    for rec in band_recs:
+        rec.update(rank=args.rank, transport=meshes[(1, 2)].transport, note=PARALLEL_NOTE)
+        print(json.dumps(rec), flush=True)
+    failed += band_failed
     torch.distributed.destroy_process_group()
     if failed:
         print(f"rank {args.rank}: failed {failed}", file=sys.stderr)
@@ -2276,7 +2658,8 @@ def phase_parallel():
             if rec["rank"] == 0:
                 summary[rec["cell"]] = {k: rec.get(k) for k in (
                     "median_ms", "unsharded_median_ms", "ms_per_step", "single_ms_per_step",
-                    "collectives_per_forward", "collective_bytes_per_forward")}
+                    "collectives_per_forward", "collective_bytes_per_forward",
+                    "collectives_per_step", "loss_rel_err", "grad_rel_l2")}
     emit({"phase": "parallel_done", "ranks": PARALLEL_RANKS, "backend": backend,
           "transport": "gloo, host copies" if backend == "gloo" else "nccl",
           "cards": torch.cuda.device_count(), "note": PARALLEL_NOTE
@@ -2371,22 +2754,27 @@ def main():
     smi = phase_device()
     native_seconds = phase_build()
     shapes = main_path_shapes(get_config("S"), H, W)
+    f_shapes = int8_attn_shapes(get_config("S"), H, W)
     xl_blocks = main_path_shapes(get_config("XL"), H, W, fused_block=True)
     with torch.inference_mode():
         xl_unfused = main_path_shapes(get_config("XL"), H, W, fused_block=False)
         results = phase_kernels({**shapes, "fused_basic_attn_block":
-                                 xl_blocks["fused_basic_attn_block"]},
+                                 xl_blocks["fused_basic_attn_block"],
+                                 "int8_attention": f_shapes},
                                 {k: xl_unfused[k] for k in XL_TIMED})
+        phase_e_acc_bf16()
         phase_probe()
     phase_golden(fused_block=False)
     phase_golden(fused_block=True)
     phase_golden_int8()
     rng = np.random.default_rng(0)
     pairs = [stereo_pair(rng, H, W, 16 + 8 * i) for i in range(N_REQUESTS)]
-    launches, medians = phase_main_path(shapes, pairs)
+    launches, medians, s_disps = phase_main_path(shapes, pairs)
     xl_launches, xl_bf16_disps = phase_xl(pairs[:N_XL_REQUESTS], medians)
     launches.update(xl_launches)
-    int8_launches, xl_int8_log, xl_int8_scales = phase_int8(shapes, pairs, xl_bf16_disps)
+    int8_launches, xl_int8_log, xl_int8_scales = phase_int8(shapes, f_shapes, pairs,
+                                                            xl_bf16_disps, s_disps)
+    del s_disps
     launches.update(int8_launches)
     with torch.inference_mode():
         e_entries = phase_int8_sites(xl_int8_log)

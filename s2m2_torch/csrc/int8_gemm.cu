@@ -26,7 +26,13 @@
 //    memory, the only layout 8-bit wgmma takes), then the epilogue
 //    out = cast(float(acc) * (s_w[n] * s_x) + bias[n]) with the scale
 //    product taken first and no fused multiply-add, as the JAX package
-//    rounds; or the raw int32 accumulators. Row-major (M, N) or NCHW output.
+//    rounds; or the raw int32 accumulators; or, the int8_acc_bf16 opt-in
+//    (quant.py:310-322, 462-465, 496-499), the accumulator rounded to bf16
+//    first and each step after it in bf16: bf16(bf16(acc) * bf16(s_w[n] *
+//    s_x)), plus bf16(bias[n]) rounded to bf16 again, then cast (out_kind
+//    3 and 4: a template parameter of the one kernel, so each int8
+//    instance is compiled twice and the other kinds' epilogue is as it
+//    was). Row-major (M, N) or NCHW output.
 //    The same kernel on bf16 operands (m64nNk16.f32.bf16.bf16, float32
 //    accumulation) is the probe's _kernel_bf16 body.
 //
@@ -302,7 +308,8 @@ struct GemmArgs {
   float s_x;
   const float* bias;
   void* out;
-  int out_kind;    // 0 float32, 1 bfloat16, 2 the raw int32 accumulators
+  int out_kind;    // 0 float32, 1 bfloat16, 2 the raw int32 accumulators;
+                   // 3 bfloat16, 4 float32, both by the bf16 accumulator
   long long ldc;   // row-major output: row stride in elements
   long long hw;    // > 0: NCHW output, row m_base + m = b * hw + p
   long long m_base;
@@ -344,20 +351,39 @@ struct Smem {
   static_assert(BYTES <= 232448, "shared memory");
 };
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // One element of the output tile, dequantized (scale = s_w[n] * s_x, taken
-// first, no fused multiply-add) and written to `d` as the output dtype.
-template <typename Acc>
+// first, no fused multiply-add) and written to `d` as the output dtype
+// (kind 0 float32, 1 bfloat16, 2 the raw int32 accumulators). ACC16, the
+// instances of kinds 3 (bfloat16) and 4 (float32), rounds the accumulator
+// to bf16 and then computes in bf16, each step in float32 rounded to bf16
+// (the product of two bf16 values is exact in float32), as
+// ops/int8_gemm.py's plain version does.
+template <bool ACC16, typename Acc>
 __device__ __forceinline__ void put(uint8_t* d, Acc a, float scale, float bias, int kind,
                                    bool scaled, bool biased) {
   float v = acc_f(a);
-  if (scaled) v = __fmul_rn(v, scale);
-  if (biased) v = __fadd_rn(v, bias);
-  if (kind == 1)
-    *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
-  else if (kind == 0)
-    *reinterpret_cast<float*>(d) = v;
-  else
-    *reinterpret_cast<int*>(d) = acc_raw(a);
+  if constexpr (ACC16) {
+    v = bf16_round(v);
+    if (scaled) v = bf16_round(__fmul_rn(v, bf16_round(scale)));
+    if (biased) v = bf16_round(__fadd_rn(v, bf16_round(bias)));
+    if (kind == 3)
+      *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
+    else
+      *reinterpret_cast<float*>(d) = v;
+  } else {
+    if (scaled) v = __fmul_rn(v, scale);
+    if (biased) v = __fadd_rn(v, bias);
+    if (kind == 1)
+      *reinterpret_cast<__nv_bfloat16*>(d) = __float2bfloat16_rn(v);
+    else if (kind == 0)
+      *reinterpret_cast<float*>(d) = v;
+    else
+      *reinterpret_cast<int*>(d) = acc_raw(a);
+  }
 }
 
 __device__ __forceinline__ void copy_elem(uint8_t* d, const uint8_t* s, int es) {
@@ -417,7 +443,7 @@ __device__ __forceinline__ long long row_of(const GemmArgs& p, const Tile& tl, i
 // from device memory once. Warpgroups 0 .. WGS - 1 consume, warpgroup WGS
 // produces; the producer runs ahead into the next tile's k tiles while the
 // consumers store a tile's outputs straight from their registers.
-template <typename In, int BN, int WGS, int STAGES>
+template <typename In, int BN, int WGS, int STAGES, bool ACC16>
 __global__ void __launch_bounds__(128 * (WGS + 1), 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 const __grid_constant__ CUtensorMap tma_b, const GemmArgs p) {
@@ -547,7 +573,7 @@ __global__ void __launch_bounds__(128 * (WGS + 1), 1)
     const int lt = tid & 127;
     const int lane = lt & 31;
     const bool nchw = p.hw > 0;
-    const int es = p.out_kind == 1 ? 2 : 4;
+    const int es = p.out_kind == (ACC16 ? 3 : 1) ? 2 : 4;
     const int warp = lt >> 5;  // this warp's 16 rows: wg * 64 + warp * 16 ..
     uint8_t* stg = staging + (wg * 4 + warp) * STG_BYTES;  // this warp's 16 rows
     float* t_scale = tables + wg * 2 * BN;  // this warpgroup's s_w[n] * s_x, bias[n]
@@ -616,8 +642,8 @@ __global__ void __launch_bounds__(128 * (WGS + 1), 1)
             uint8_t* d = stg + ((lane >> 2) + 8 * h) * STG_PITCH + cl * es;
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              put(d + e * es, acc[jn * 4 + h * 2 + e], t_scale[c0 + cl + e],
-                  t_bias[c0 + cl + e], p.out_kind, scaled, biased);
+              put<ACC16>(d + e * es, acc[jn * 4 + h * 2 + e], t_scale[c0 + cl + e],
+                         t_bias[c0 + cl + e], p.out_kind, scaled, biased);
           }
         }
         __syncwarp();
@@ -747,13 +773,14 @@ bool weight_map(CUtensorMap* map, const void* w, bool bf16, long long rows, long
   return true;
 }
 
-template <typename In, int BN, int WGS, int STAGES>
+template <typename In, int BN, int WGS, int STAGES, bool ACC16>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, const GemmArgs& p,
                    cudaStream_t stream) {
   constexpr int BM = 64 * WGS;
   constexpr int bytes = Smem<BM, BN, STAGES>::BYTES;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<In, BN, WGS, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      gemm_kernel<In, BN, WGS, STAGES, ACC16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (attr != cudaSuccess) return attr;
   static const int sms = [] {
     int dev = 0, n = 0;
@@ -766,17 +793,29 @@ cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, const GemmArgs&
                   : (p.M + BM - 1) / BM;
   const long long tiles = panels * ((p.N + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  gemm_kernel<In, BN, WGS, STAGES><<<grid, 128 * (WGS + 1), bytes, stream>>>(ma, mb, p);
+  gemm_kernel<In, BN, WGS, STAGES, ACC16><<<grid, 128 * (WGS + 1), bytes, stream>>>(ma, mb, p);
   return cudaGetLastError();
+}
+
+// One instance of the table: the int8 ones also compiled with the bf16
+// accumulator's epilogue (out_kind 3, 4), so the other kinds keep theirs.
+template <int OP, int BN, int WGS, int STAGES>
+cudaError_t launch_kind(const CUtensorMap& ma, const CUtensorMap& mb, const GemmArgs& p,
+                        cudaStream_t stream) {
+  if constexpr (OP == 0) {
+    if (p.out_kind >= 3) return launch<int8_t, BN, WGS, STAGES, true>(ma, mb, p, stream);
+    return launch<int8_t, BN, WGS, STAGES, false>(ma, mb, p, stream);
+  } else {
+    return launch<__nv_bfloat16, BN, WGS, STAGES, false>(ma, mb, p, stream);
+  }
 }
 
 // op 0: int8 operands, 1: bf16. The instance must be one of the table's.
 cudaError_t dispatch(int op, int bn, int wgs, int stages, const CUtensorMap& ma,
                      const CUtensorMap& mb, const GemmArgs& p, cudaStream_t stream) {
-#define S2M2_GEMM_CASE(OP, BN, WGS, STAGES)                                         \
-  if (op == OP && bn == BN && wgs == WGS && stages == STAGES)                       \
-    return launch<std::conditional_t<OP == 0, int8_t, __nv_bfloat16>, BN, WGS, STAGES>( \
-        ma, mb, p, stream);
+#define S2M2_GEMM_CASE(OP, BN, WGS, STAGES)                   \
+  if (op == OP && bn == BN && wgs == WGS && stages == STAGES) \
+    return launch_kind<OP, BN, WGS, STAGES>(ma, mb, p, stream);
   S2M2_GEMM_INSTANCES(S2M2_GEMM_CASE)
 #undef S2M2_GEMM_CASE
   return cudaErrorInvalidValue;  // a plan this build was not compiled for
@@ -890,7 +929,8 @@ extern "C" int s2m2_quantize_im2col(const void* x, void* q, long long m_begin,
 // strides lda, ldb in bytes (multiples of 16), K * element size = Kb, a
 // multiple of 32 bytes. w_scale (N,) float32 or null (then no scaling),
 // bias (N,) float32 or null. out_kind 0 float32, 1 bfloat16, 2 the raw
-// int32 accumulators (int8 only). hw > 0: out is NCHW and rows are
+// int32 accumulators (int8 only), 3 bfloat16 and 4 float32 through the bf16
+// accumulator (int8 with w_scale only). hw > 0: out is NCHW and rows are
 // m_base + m. (bn, wgs, stages): the instance, from the wrapper's plan.
 extern "C" int s2m2_gemm(const void* a, long long lda, const void* w, long long ldb,
                          long long M, int N, int Kb, int op, const void* w_scale, float s_x,
@@ -900,8 +940,9 @@ extern "C" int s2m2_gemm(const void* a, long long lda, const void* w, long long 
   const int es = op == 1 ? 2 : 1;
   if (hw > 0 && m_base + M >= (1LL << 31)) return cudaErrorInvalidValue;
   if (M < 1 || N < 1 || Kb < 32 || Kb % 32 != 0 || lda % 16 != 0 || ldb % 16 != 0 ||
-      !aligned16(a) || !aligned16(w) || out_kind < 0 || out_kind > 2 ||
-      (op == 1 && out_kind == 2) || op < 0 || op > 1)
+      !aligned16(a) || !aligned16(w) || out_kind < 0 || out_kind > 4 ||
+      (op == 1 && out_kind >= 2) || (out_kind >= 3 && w_scale == nullptr) || op < 0 ||
+      op > 1)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (!encode(&ma, a, op == 1, M, Kb / es, lda, 64 * wgs) ||
@@ -927,7 +968,8 @@ extern "C" int s2m2_conv_gemm(const void* x, int B, int H, int W, int Cp, int Ho
   const long long Kb = static_cast<long long>(kh) * kw * Cp;
   if (B < 1 || H < 1 || W < 1 || Cp < 32 || Cp % 32 != 0 || Ho < 1 || Wo < 1 || kh < 1 ||
       kw < 1 || sh < 1 || sw < 1 || ph < 0 || pw < 0 || N < 1 || Kb > 0x7fffffffLL ||
-      ldb % 16 != 0 || !aligned16(x) || !aligned16(w) || out_kind < 0 || out_kind > 2 ||
+      ldb % 16 != 0 || !aligned16(x) || !aligned16(w) || out_kind < 0 || out_kind > 4 ||
+      (out_kind >= 3 && w_scale == nullptr) ||
       static_cast<long long>(B) * H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if ((tiled && (sh != 1 || sw != 1 || Cp % BKB != 0 || wgs < 1 || wgs > 3)) ||

@@ -10,10 +10,11 @@ data-parallel over a mesh of local ranks.
 The default model is the tiny debug configuration (CH32, NTR1,
 refine_iter 1). It trains on the card unless `--device cpu` is given.
 `--mesh DxB` starts D*B ranks on this host (`parallel/launch.py`), each
-taking its slice of every batch: gloo on the CPU; on the card NCCL with a
-card per rank, or `--backend gloo` (the host transport) when the ranks
-share fewer cards. Band sharding in training (B > 1) is not ported and
-exits non-zero with the trainer's message.
+taking its shard of every batch: its slice of the pairs and, with B > 1,
+its band of rows (whole 32-row blocks, so the crop's height must split
+into them, or the demo refuses it): gloo on the CPU; on the card NCCL with
+a card per rank, or `--backend gloo` (the host transport) when the ranks
+share fewer cards, e.g. `--mesh 1x2 --backend gloo` on one card.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def _parser():
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--checkpoint_dir", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="'DATAxBAND', e.g. 2x1: data-parallel over DATA local ranks")
+                    help="'DATAxBAND', e.g. 2x1 (data parallel) or 1x2 (two bands of rows)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="transport of a mesh on the card (default: NCCL, which "
                          "needs a card per rank)")
@@ -45,11 +46,22 @@ def _parser():
     return ap
 
 
-def _mesh_shape(spec):
+def _mesh_shape(spec, height):
+    """(n_data, n_band) of a DATAxBAND spec; raises ValueError on a bad spec,
+    or on a crop height that does not split into whole 32-row blocks per
+    band."""
     try:
         n_data, n_band = (int(x) for x in spec.lower().split("x"))
     except ValueError:
-        raise SystemExit(f"train_demo: --mesh takes DATAxBAND, e.g. 2x1, not {spec!r}")
+        raise ValueError(f"--mesh takes DATAxBAND, e.g. 2x1, not {spec!r}") from None
+    if n_data < 1 or n_band < 1:
+        raise ValueError(f"--mesh {spec}: both sizes must be at least 1")
+    if n_band > 1:
+        from ..parallel.mesh import band_rows
+        try:
+            band_rows(height, n_band)
+        except ValueError as exc:
+            raise ValueError(f"--mesh {spec} with --height {height}: {exc}") from None
     return n_data, n_band
 
 
@@ -75,10 +87,10 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     mesh = None
     if args.mesh:
-        from ..train.step import BAND_TRAINING
-        n_data, n_band = _mesh_shape(args.mesh)
-        if n_band > 1:
-            print(f"train_demo: --mesh {args.mesh}: {BAND_TRAINING}", file=sys.stderr)
+        try:
+            n_data, n_band = _mesh_shape(args.mesh, args.height)
+        except ValueError as exc:
+            print(f"train_demo: {exc}", file=sys.stderr)
             return 2
         if args.rank is None:
             return _spawn(argv, n_data * n_band)

@@ -11,8 +11,10 @@ and run their sublayers on channel-last tokens. Two families:
 
 Every attention without PE goes through `ops.flash_attention` (the CUDA
 kernels on a card), or, for a scanline block with the fused route on,
-through `ops.fused_block`. The PE branch needs the probability matrix
-itself, so it stays matmul + softmax.
+through `ops.fused_block`, or, in an int8 context with the int8_attn
+opt-in, through the int8 core `quant.sdpa_maybe_quantized` (kernel F on a
+card). The PE branch needs the probability matrix itself, so it stays
+matmul + softmax.
 
 Inside an int8 context (`quant`), in the JAX package's site order
 (`s2m2_tpu/models/attention.py`): q/k/v read one shared site, as do the
@@ -21,7 +23,11 @@ head's attention output through its own row slice of `proj` (one site per
 head, summed in the compute dtype, as JAX's `_attn_4d_sliced`), with q, k,
 v and proj quantized as whole weights; under "int8r" the first three
 sublayers of a scanline block hand their output on as int8. The attention
-cores stay float, and a fused block stays float and holds no site.
+cores stay float unless int8_attn is on; then each core without PE is
+three sites (q, k, v), the packed cross form two cores (x attends to y,
+then y to x, six sites), and a multi-head scanline block takes its heads
+one at a time, each head's core before its proj site. A fused block
+stays float and holds no site.
 """
 from __future__ import annotations
 
@@ -69,22 +75,63 @@ def _weight_cols(w_q, sl):
 def _project(attn, out, qw):
     """attn.proj on the (B*H, N, d) head outputs: one GEMM on the merged
     heads, or, in a quant context of a multi-head scanline block, one site
-    per head on its row slice of proj, summed in the compute dtype."""
+    per head on its row slice of proj, summed in the compute dtype. `out`
+    may be a function of the head index giving that head's (B, N, d)
+    output, called just before the head's site."""
     nh = attn.num_heads
     if not (attn.sliced and quant.active()):
         return attn.proj(_unfold_heads(out, nh), qw)
-    bh, n, d = out.shape
-    heads = out.view(bh // nh, nh, n, d)
     w = attn.proj.weight
+    d = w.shape[1] // nh
+    if callable(out):
+        head = out
+    else:
+        heads = out.view(out.shape[0] // nh, nh, out.shape[1], d)
+        head = lambda h: heads[:, h]  # noqa: E731
     acc = None
     for h in range(nh):
         sl = slice(h * d, (h + 1) * d)
         qwh = None if qw is None else (_weight_cols(qw[0], sl), qw[1])
-        y = layers.linear_q(heads[:, h], w[:, sl], None, qwh)
+        y = layers.linear_q(head(h), w[:, sl], None, qwh)
         acc = y if acc is None else acc + y
     if attn.proj.bias is not None:
         acc = acc + attn.proj.bias.to(acc.dtype)
     return acc
+
+
+def _core(q, k, v, cross):
+    """The attention core on (B*H, N, d) rows: under int8_attn the int8 core
+    (three sites; the packed cross form as two calls, x attending to y,
+    then y to x, as the JAX package runs it), which in observe mode records
+    its sites and leaves the float core to run; else kernel A, or B on the
+    packed (x | y) batch."""
+    if quant.attn_active():
+        if cross:
+            b0 = q.shape[0] // 2
+            out = [quant.sdpa_maybe_quantized(q[:b0], k[b0:], v[b0:]),
+                   quant.sdpa_maybe_quantized(q[b0:], k[:b0], v[:b0])]
+            if out[0] is not None:
+                return torch.cat(out)
+        else:
+            out = quant.sdpa_maybe_quantized(q, k, v)
+            if out is not None:
+                return out
+    if cross:
+        return fa.scanline_cross_attention_packed(q, k, v)
+    return fa.scanline_attention(q, k, v)
+
+
+def _attend(attn, q, k, v, qw, cross=False):
+    """The attention core of the folded q, k, v, then attn.proj. Under
+    int8_attn a multi-head scanline block takes one head at a time, its
+    core's sites before its proj site (JAX's `_attn_4d_sliced` order)."""
+    if attn.sliced and quant.attn_active():
+        nh = attn.num_heads
+        bh, n, d = q.shape
+        qs, ks, vs = (t.view(bh // nh, nh, n, d) for t in (q, k, v))
+        return _project(attn, lambda h: _core(qs[:, h].contiguous(), ks[:, h].contiguous(),
+                                              vs[:, h].contiguous(), cross), qw)
+    return _project(attn, _core(q, k, v, cross), qw)
 
 
 def _unfold_heads(x, num_heads):
@@ -119,15 +166,14 @@ class SelfAttn(nn.Module):
         k = _fold_heads(self.k(x, qw["k"]), nh)
         v = _fold_heads(self.v(x, qw["v"]), nh)
         if pe is None:
-            out = fa.scanline_attention(q, k, v)
-        else:
-            ty, tx, h, w = pe
-            scale = q.shape[-1] ** -0.5
-            score = torch.matmul(q * scale, k.transpose(-1, -2))
-            attn = torch.softmax(score.float(), dim=-1).to(v.dtype)
-            out = torch.matmul(attn, v)
-            pe_sum = pe_contract(attn, ty, tx, h, w).to(v.dtype)
-            out = out + self.pe_proj(pe_sum)
+            return _attend(self, q, k, v, qw["proj"])
+        ty, tx, h, w = pe
+        scale = q.shape[-1] ** -0.5
+        score = torch.matmul(q * scale, k.transpose(-1, -2))
+        attn = torch.softmax(score.float(), dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v)
+        pe_sum = pe_contract(attn, ty, tx, h, w).to(v.dtype)
+        out = out + self.pe_proj(pe_sum)
         return _project(self, out, qw["proj"])
 
 
@@ -154,7 +200,7 @@ class CrossAttn(nn.Module):
         k = _fold_heads(self.k(xy, qw["k"]), nh)
         v = _fold_heads(self.v(xy, qw["v"]), nh)
         # the left view's rows come first after folding; one output tensor
-        return _project(self, fa.scanline_cross_attention_packed(q, k, v), qw["proj"])
+        return _attend(self, q, k, v, qw["proj"], cross=True)
 
 
 class FFN(nn.Module):

@@ -25,10 +25,20 @@ weight); a narrower conv packs explicit im2col rows, in chunks of at most
 `MAX_PACK_BYTES`; a linear packs token rows. On CPU tensors the plain
 versions run. The state is thread-local, as in the JAX package.
 
-Left out of the port: int8 attention cores (`sdpa_maybe_quantized`, the
-`int8_attn` opt-in) and bf16 accumulators (`int8_acc_bf16`), both off by
-default in the JAX package, and `linear_heads_maybe_quantized`, which
-nothing there calls.
+The JAX package's two opt-ins, off by default there and here, are
+context options fixed per engine (`StereoEngine(int8_attn=...,
+int8_acc_bf16=...)`), so calibration and inference agree:
+
+- `attn`: the attention cores without PE run in int8
+  (`sdpa_maybe_quantized`): three static sites per call, q, k and v,
+  quantized under every site policy (the JAX package does not consult
+  `_quantizable` there), the probabilities with a per-row dynamic scale;
+  kernel F (`ops/int8_attention.py`) on the card;
+- `acc_bf16`: every int8 GEMM rounds its int32 accumulator to bf16 and
+  dequantizes in bf16 (kernel E's bf16-accumulator epilogue).
+
+Left out: `linear_heads_maybe_quantized`, which nothing in the JAX
+package calls.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..ops import int8_attention as ia
 from ..ops import int8_gemm as ig
 
 # One launch's explicit im2col rows (convs with C < ig.IMPLICIT_MIN_C) stay
@@ -68,6 +79,8 @@ def _ctx():
         s.skip_fp32 = False
         s.residency = False
         s.percentile = None
+        s.attn = False
+        s.acc_bf16 = False
         s.log = None
         s.last_log = []
     return s
@@ -92,7 +105,7 @@ def _log(kind, **rec):
 
 
 _FIELDS = ("mode", "scales", "cursor", "observed", "aligned", "skip_fp32", "residency",
-           "percentile", "log")
+           "percentile", "attn", "acc_bf16", "log")
 
 
 @contextlib.contextmanager
@@ -111,26 +124,33 @@ def _context(**values):
 
 
 @contextlib.contextmanager
-def observe(aligned=False, skip_fp32=False, residency=False, percentile=None):
+def observe(aligned=False, skip_fp32=False, residency=False, percentile=None, attn=False,
+            acc_bf16=False):
     """Record each site's max|x| (a 0-d float32 tensor) into the yielded list.
 
     aligned: the 128-aligned site policy ("int8a"); skip_fp32: leave
     float32-weight GEMMs (the engine's fp32 islands) float; residency: also
     the int8 residual stream sites ("int8r"); percentile: record that
-    percentile of |x| instead of the max."""
+    percentile of |x| instead of the max; attn: also the int8 attention
+    cores' q, k and v sites (int8_attn); acc_bf16: the bf16 accumulators
+    (int8_acc_bf16, no site of its own)."""
     with _context(mode="observe", observed=[], aligned=bool(aligned),
                   skip_fp32=bool(skip_fp32), residency=bool(residency),
-                  percentile=None if percentile is None else float(percentile)) as s:
+                  percentile=None if percentile is None else float(percentile),
+                  attn=bool(attn), acc_bf16=bool(acc_bf16)) as s:
         yield s.observed
 
 
 @contextlib.contextmanager
-def quantized(scales, aligned=False, skip_fp32=False, residency=False):
+def quantized(scales, aligned=False, skip_fp32=False, residency=False, attn=False,
+              acc_bf16=False):
     """Run with static per-site scales, matched by trace order to the
-    `observe()` pass (with the same site policies) that produced them."""
+    `observe()` pass (with the same site policies and opt-ins) that
+    produced them."""
     with _context(mode="quantize", scales=[float(v) for v in scales], cursor=0,
                   aligned=bool(aligned), skip_fp32=bool(skip_fp32),
-                  residency=bool(residency)) as s:
+                  residency=bool(residency), attn=bool(attn),
+                  acc_bf16=bool(acc_bf16)) as s:
         yield
         if s.cursor != len(s.scales):
             raise ValueError(
@@ -379,7 +399,7 @@ def _pack(x, inv, geom, rows=None):
 
 def _gemm(a, k, w_q, s_w, s_x, bias, dtype, out=None, m_base=0, conv=None, nchw=None):
     y = ig.int8_gemm(a, w_q, s_w, s_x, bias, dtype, out=out, m_base=m_base, conv=conv,
-                     nchw=nchw)
+                     nchw=nchw, acc_bf16=_ctx().acc_bf16)
     m = a.shape[0] if conv is None else y.shape[0] * y.shape[2] * y.shape[3]
     _log("gemm", m=m, n=w_q.shape[0], k=k, kp=w_q.shape[1], out=str(dtype),
          nchw=out is not None or nchw is not None, conv=conv, a_shape=tuple(a.shape))
@@ -483,3 +503,30 @@ def conv_transpose_maybe_quantized(x, mod, haloed=False):
     w2d = w.flip(2, 3).transpose(0, 1).reshape(cout, cin * kh * kw)
     return gemm_site(x, w2d, mod.bias, None, mod.site_gate,
                      (kh, kw, 1, 1, 0 if haloed else kh - 1 - p, kw - 1 - p))
+
+
+# ---------------------------------------------------------------- attention
+
+def attn_active() -> bool:
+    """Whether the int8 attention cores (int8_attn) are on in this context."""
+    s = _ctx()
+    return s.mode is not None and s.attn
+
+
+def sdpa_maybe_quantized(q, k, v):
+    """The int8 attention core on (B, N, d) sequences q (B, Nq, d), k and v
+    (B, Nk, d) under the int8_attn opt-in (s2m2_tpu/models/quant.py:369-404):
+    in observe mode records q's, k's and v's max|x| (three sites) and
+    returns None, as it does outside the opt-in; in quantize mode takes
+    their three static scales and returns `ops.int8_attention` (kernel F on
+    the card) in v's dtype."""
+    s = _ctx()
+    if s.mode is None or not s.attn:
+        return None
+    if s.mode == "observe":
+        for x in (q, k, v):
+            _record_amax(x)
+        return None
+    s_q, s_k, s_v = _next_scale(), _next_scale(), _next_scale()
+    _log("attention", q_shape=tuple(q.shape), k_shape=tuple(k.shape), dtype=str(q.dtype))
+    return ia.int8_attention(q, k, v, s_q, s_k, s_v)

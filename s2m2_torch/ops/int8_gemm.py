@@ -18,7 +18,10 @@ probe `scripts/probe_pallas_int8.py`, as one pack and one GEMM launch of
   a's NHWC tensor against w (N, kh * kw * Cp) in (dy, dx, c) order
   (`conv_weight_taps`); int32 accumulation by wgmma, then float(acc) *
   (w_scale[n] * s_x) + bias[n], cast to the output dtype; or the raw int32
-  accumulators (`out_dtype=torch.int32`).
+  accumulators (`out_dtype=torch.int32`); or, with `acc_bf16` (the JAX
+  package's int8_acc_bf16 opt-in), the accumulator rounded to bf16 and the
+  epilogue in bf16: bf16(acc) * bf16(w_scale[n] * s_x), plus bf16(bias[n]),
+  each step rounded to bf16, then cast.
 
 `bf16_gemm` is the same GEMM kernel on bf16 operands with float32
 accumulation (the probe's `_kernel_bf16` body), and `probe_chain` is the
@@ -228,14 +231,24 @@ def conv_rows_plain(a, conv):
 
 
 def int8_gemm_plain(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
-                    conv=None):
+                    conv=None, acc_bf16=False):
     """(M, N) = a w^T summed exactly, then the dequantizing epilogue; with
-    `conv`, a is the NHWC int8 tensor and its rows are `conv_rows_plain`."""
+    `conv`, a is the NHWC int8 tensor and its rows are `conv_rows_plain`.
+    acc_bf16: the accumulator (exact in float32 below 2**24) rounded to
+    bf16, then the scale multiply and the bias add in bf16, as the JAX
+    package computes with int8_acc_bf16 (s2m2_tpu/models/quant.py:351-354,
+    and the callers' `acc + bias.astype(acc.dtype)`)."""
     rows = conv_rows_plain(a, conv) if conv is not None else a.double()
     acc = torch.matmul(rows, w.double().t())
     if out_dtype == torch.int32:
         return acc.to(torch.int32)
     y = acc.float()
+    if acc_bf16:
+        bf = torch.bfloat16
+        y = y.to(bf) * (w_scale.float() * torch.tensor(s_x, dtype=torch.float32)).to(bf)
+        if bias is not None:
+            y = y + bias.to(bf)
+        return y.to(out_dtype)
     if w_scale is not None:
         y = y * (w_scale.float() * torch.tensor(s_x, dtype=torch.float32))
     if bias is not None:
@@ -400,6 +413,15 @@ def _out(out, m, n, out_dtype, dev, m_base, name):
     return out, 0, hw
 
 
+def _out_kind(out_dtype, acc_bf16):
+    """The C entry's out_kind: 0 float32, 1 bf16, 2 int32 (the raw
+    accumulators, whatever acc_bf16 says); 3 bf16 and 4 float32 through
+    the bf16 accumulator."""
+    if not acc_bf16 or out_dtype == torch.int32:
+        return _OUT_KINDS[out_dtype]
+    return 3 if out_dtype == torch.bfloat16 else 4
+
+
 def gemm_geometry(a, w, w_scale, out_dtype, conv, nchw=None):
     """(a, conv, m, n, output shape) of an `int8_gemm` call, from shapes and
     dtypes alone: a 1x1 stride-1 conv becomes the row case on a's pixels;
@@ -448,7 +470,7 @@ def _rows_to_nchw(y, nchw):
 
 
 def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
-              out=None, m_base=0, conv=None, nchw=None):
+              out=None, m_base=0, conv=None, nchw=None, acc_bf16=False):
     """a (M, Kp) int8 rows against w (N, Kp) int8: returns (M, N) in
     out_dtype (float32, bfloat16, or int32 for the raw accumulators). With
     nchw = (B, H, W), B * H * W = M, returns the NCHW (B, N, H, W) output
@@ -457,7 +479,8 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
     kw, sh, sw, ph, pw), a is the NHWC int8 tensor (B, H, W, Cp) of
     `quantize_pack(..., nhwc=True)`, w is (N, kh * kw * Cp) in (dy, dx, c)
     order (`conv_weight_taps`) and the rows are the conv's outputs (b, ho,
-    wo); a 1x1 stride-1 conv is the row case on a's pixels. While
+    wo); a 1x1 stride-1 conv is the row case on a's pixels. acc_bf16: the
+    bf16-accumulator epilogue (module docstring). While
     torch.export traces, and on meta tensors, the call goes through the
     functional custom op `s2m2_torch::int8_gemm` (ops/library.py), and a
     call with `out` copies the rows the op returns into it."""
@@ -469,25 +492,28 @@ def int8_gemm(a, w, w_scale=None, s_x=1.0, bias=None, out_dtype=torch.bfloat16,
         geom = None if conv is None else list(conv)
         if out is None:
             return gemm(a, w, w_scale, float(s_x), bias, out_dtype, geom,
-                        None if nchw is None else list(nchw))
-        _write_nchw(out, gemm(a, w, w_scale, float(s_x), bias, out_dtype, geom, None), m_base)
+                        None if nchw is None else list(nchw), acc_bf16)
+        _write_nchw(out, gemm(a, w, w_scale, float(s_x), bias, out_dtype, geom, None,
+                              acc_bf16), m_base)
         return out
     cuda = _device(a, name)
     a, conv, m, n, _ = gemm_geometry(a, w, w_scale, out_dtype, conv, nchw)
     if out is not None and out.dtype != out_dtype:
         raise TypeError(f"{name}: output dtype {out_dtype} not supported")
     if not cuda:
-        y = int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv)
+        y = int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv, acc_bf16)
         if out is None:
             return y if nchw is None else _rows_to_nchw(y, nchw)
         _write_nchw(out, y, m_base)
         return out
     if torch.is_grad_enabled():
         refuse_grad(name, *[t for t in (w_scale, bias) if t is not None])
-    return _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw)
+    return _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw,
+                        acc_bf16)
 
 
-def _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw):
+def _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, nchw,
+                 acc_bf16=False):
     """The GEMM kernel's direct launch on CUDA tensors, after
     `gemm_geometry` (a, conv, m, n as it returns them); into `out`, a new
     NCHW (B, n, H, W) output with nchw = (B, H, W), else new (m, n) rows."""
@@ -513,16 +539,16 @@ def _gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, out, m_base, conv, m, n, n
     if conv is None:
         _build.call(_entry(_GEMM), a.device, name, a.data_ptr(), a.stride(0), w.data_ptr(),
                     w.stride(0), m, n, depth, _OPS["int8"], scale, float(s_x), bias_p,
-                    out.data_ptr(), ldc, hw, m_base, _OUT_KINDS[out_dtype], p.bn, p.wgs,
-                    p.stages)
+                    out.data_ptr(), ldc, hw, m_base, _out_kind(out_dtype, acc_bf16), p.bn,
+                    p.wgs, p.stages)
     else:
         b, h, wd, cp = a.shape
         ho, wo = conv_out_hw(h, wd, conv)
         kh, kw, sh, sw, ph, pw = conv
         _build.call(_entry(_CONV), a.device, name, a.data_ptr(), b, h, wd, cp, ho, wo, kh,
                     kw, sh, sw, ph, pw, w.data_ptr(), w.stride(0), n, scale, float(s_x),
-                    bias_p, out.data_ptr(), ldc, hw, m_base, _OUT_KINDS[out_dtype], int(tiled),
-                    p.bn, p.wgs, p.stages)
+                    bias_p, out.data_ptr(), ldc, hw, m_base, _out_kind(out_dtype, acc_bf16),
+                    int(tiled), p.bn, p.wgs, p.stages)
     return out
 
 

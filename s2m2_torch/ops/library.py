@@ -1,4 +1,4 @@
-"""Kernels A-E as `torch.library` custom ops, namespace `s2m2_torch`.
+"""Kernels A-F as `torch.library` custom ops, namespace `s2m2_torch`.
 
 The wrappers launch their CUDA kernels through ctypes on `data_ptr()`
 (`_build.call`), which tracing cannot see: `torch.export` would either
@@ -16,7 +16,10 @@ the hand-written kernels:
   kernel C;
 - `fused_basic_attn_block(rows, right0, weights, num_heads)`: kernel D;
 - `int8_quantize_pack(x, inv, conv, rows, nhwc)` and `int8_gemm(a, w,
-  w_scale, s_x, bias, out_dtype, conv, nchw)`: kernel E's two launches.
+  w_scale, s_x, bias, out_dtype, conv, nchw, acc_bf16)`: kernel E's two
+  launches;
+- `int8_attention(q, k, v, s_q, s_k, s_v)`: kernel F, the int8 attention
+  core of the int8_attn opt-in.
 
 Per device: the "cuda" kernel of each op is the wrapper's direct launch
 (the same `_build.call`, counted in `_build.launch_counts`, raising on a
@@ -53,6 +56,7 @@ from torch import Tensor
 
 from . import flash_attention as fa
 from . import fused_block as fb
+from . import int8_attention as ia
 from . import int8_gemm as ig
 from . import sinkhorn
 
@@ -206,25 +210,51 @@ def _(x, inv, conv, rows, nhwc):
 @torch.library.custom_op(f"{NAMESPACE}::int8_gemm", mutates_args=())
 def int8_gemm(a: Tensor, w: Tensor, w_scale: Optional[Tensor], s_x: float,
               bias: Optional[Tensor], out_dtype: torch.dtype, conv: Optional[List[int]],
-              nchw: Optional[List[int]]) -> Tensor:
+              nchw: Optional[List[int]], acc_bf16: bool = False) -> Tensor:
     raise _unsupported("int8_gemm", a)
 
 
 @int8_gemm.register_kernel("cuda")
-def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw):
+def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw, acc_bf16=False):
     a, w = _dense(a), _dense(w)
     a, conv, m, n, _ = ig.gemm_geometry(a, w, w_scale, out_dtype, conv, nchw)
-    return ig._gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, None, 0, conv, m, n, nchw)
+    return ig._gemm_kernel(a, w, w_scale, s_x, bias, out_dtype, None, 0, conv, m, n, nchw,
+                           acc_bf16)
 
 
 @int8_gemm.register_kernel("cpu")
-def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw):
+def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw, acc_bf16=False):
     a, conv, _, _, _ = ig.gemm_geometry(a, w, w_scale, out_dtype, conv, nchw)
-    y = ig.int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv)
+    y = ig.int8_gemm_plain(a, w, w_scale, s_x, bias, out_dtype, conv, acc_bf16)
     return y if nchw is None else ig._rows_to_nchw(y, nchw)
 
 
 @int8_gemm.register_fake
-def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw):
+def _(a, w, w_scale, s_x, bias, out_dtype, conv, nchw, acc_bf16=False):
     shape = ig.gemm_geometry(a, w, w_scale, out_dtype, conv, nchw)[4]
     return a.new_empty(shape, dtype=out_dtype)
+
+
+# ---------------------------------------------------------------- F
+
+
+@torch.library.custom_op(f"{NAMESPACE}::int8_attention", mutates_args=())
+def int8_attention(q: Tensor, k: Tensor, v: Tensor, s_q: float, s_k: float,
+                   s_v: float) -> Tensor:
+    raise _unsupported("int8_attention", q)
+
+
+@int8_attention.register_kernel("cuda")
+def _(q, k, v, s_q, s_k, s_v):
+    return ia._kernel(_dense(q), _dense(k), _dense(v), s_q, s_k, s_v)
+
+
+@int8_attention.register_kernel("cpu")
+def _(q, k, v, s_q, s_k, s_v):
+    return ia.int8_attention_plain(q, k, v, s_q, s_k, s_v)
+
+
+@int8_attention.register_fake
+def _(q, k, v, s_q, s_k, s_v):
+    ia.check(q, k, v)
+    return v.new_empty(q.shape)

@@ -17,10 +17,33 @@ across rows consult this module (`models/layers.py`, `models/quant.py`,
 - `rows_of(x)`: this band's rows of such a full map.
 
 Rows are axis -2 (NCHW). With no context active every primitive runs its
-one-device code, so no collective and no cost reach that path. Each call
-counts one collective of its kind, and the bytes this rank sends;
-`last_counts()` holds the counts of the last context on this thread.
-`expected_counts` works the counts of one forward out from the config.
+one-device code, so no collective and no cost reach that path.
+
+Training: each primitive is a `torch.autograd.Function`, whose backward is
+the transpose of its collective over the same band group and with the
+same finite timeout:
+
+- halo: the gradient of the received rows goes back to the neighbour that
+  sent them, which adds it into its own edge rows (the forward's send in
+  the other direction); at the image's edges the "edge" fill's rows sum
+  into the edge row and the "zeros" fill gives nothing;
+- all_reduce_sum: an all-reduce sum of the incoming gradient;
+- all_gather_rows: a reduce-scatter, as an all-reduce in float32 of the
+  full map's gradient followed by this band's rows (bands of unequal size
+  included);
+- rows_of: a slice, whose gradient is local (zeros outside the band).
+
+Every rank runs the same forward code, so it creates the same Functions in
+the same order, and autograd runs their backwards in the same order on
+every rank: a mismatch would deadlock until the group's timeout raises.
+
+Each call counts one collective of its kind, and the bytes this rank
+sends; so does each backward that runs (a primitive whose input takes no
+gradient has none), under the kind of collective it runs: the gather's
+backward counts as an all_reduce. `last_counts()` holds the counts of the last context on
+this thread, its backward's included once autograd has run it.
+`expected_counts` works the counts of one forward, or of a forward and its
+backward, out from the config.
 """
 from __future__ import annotations
 
@@ -86,7 +109,8 @@ def sharded(mesh, rows):
         yield ctx
     finally:
         _state.ctx = prev
-        _state.last = {"counts": dict(ctx.counts), "bytes": dict(ctx.bytes)}
+        # the context's own counters: a backward run later adds to them
+        _state.last = {"counts": ctx.counts, "bytes": ctx.bytes}
 
 
 def reset_counts():
@@ -97,9 +121,96 @@ def reset_counts():
 
 def last_counts():
     """{"counts": {kind: n}, "bytes": {kind: bytes this rank sent}} of the
-    last `sharded` context on this thread (zeros before the first)."""
-    return getattr(_state, "last", {"counts": dict.fromkeys(KINDS, 0),
-                                    "bytes": dict.fromkeys(KINDS, 0)})
+    last `sharded` context on this thread, with its backward once that has
+    run (zeros before the first)."""
+    last = getattr(_state, "last", None)
+    if last is None:
+        return {"counts": dict.fromkeys(KINDS, 0), "bytes": dict.fromkeys(KINDS, 0)}
+    return {"counts": dict(last["counts"]), "bytes": dict(last["bytes"])}
+
+
+def _exchange(ctx, x, send_up, send_down, recv_up, recv_down):
+    """One batched send/recv over the band group: `send_up` (rows for the
+    band above, or None) and `send_down` (for the band below); receives
+    `recv_up` rows from the band above and `recv_down` from the band below
+    (0 for none), shaped like x's rows, in x's dtype. Counts one halo
+    collective. Returns (rows from above, rows from below), on x's device
+    (None where nothing was received)."""
+    m, j = ctx.mesh, ctx.index
+    ranks = m.band_ranks
+    ops, sent = [], 0
+    shape = lambda k: (*x.shape[:-2], k, x.shape[-1])  # noqa: E731
+    for t, peer in ((send_down, j + 1), (send_up, j - 1)):
+        if t is not None:
+            t = m.wire(t)
+            ops.append(dist.P2POp(dist.isend, t, ranks[peer], group=m.band_group))
+            sent += t.numel() * t.element_size()
+    above = below = None
+    if recv_up:
+        above = torch.empty(shape(recv_up), dtype=x.dtype, device=m.comm_device)
+        ops.append(dist.P2POp(dist.irecv, above, ranks[j - 1], group=m.band_group))
+    if recv_down:
+        below = torch.empty(shape(recv_down), dtype=x.dtype, device=m.comm_device)
+        ops.append(dist.P2POp(dist.irecv, below, ranks[j + 1], group=m.band_group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    ctx.count("halo", sent)
+    return (None if above is None else m.unwire(above),
+            None if below is None else m.unwire(below))
+
+
+class _Halo(torch.autograd.Function):
+    """halo's exchange; its backward sends the gradient of the received rows
+    back to their senders, who add it into their edge rows."""
+
+    @staticmethod
+    def forward(fctx, x, top, bottom, fill, ctx):
+        fctx.top, fctx.bottom, fctx.fill, fctx.band = top, bottom, fill, ctx
+        j, n = ctx.index, ctx.n
+        h = x.shape[-2]
+        # my last `top` rows are the top halo of the band below me; my first
+        # `bottom` rows the bottom halo of the band above
+        above, below = _exchange(
+            ctx, x, x[..., :bottom, :] if j > 0 and bottom else None,
+            x[..., h - top:, :] if j + 1 < n and top else None,
+            top if j > 0 else 0, bottom if j + 1 < n else 0)
+
+        def edge(rows, k):
+            shape = (*x.shape[:-2], k, x.shape[-1])
+            return x.new_zeros(shape) if fill == "zeros" else rows.expand(shape)
+
+        parts = []
+        if top:
+            parts.append(above if above is not None else edge(x[..., :1, :], top))
+        parts.append(x)
+        if bottom:
+            parts.append(below if below is not None else edge(x[..., -1:, :], bottom))
+        return torch.cat(parts, dim=-2)
+
+    @staticmethod
+    def backward(fctx, g):
+        top, bottom, fill, ctx = fctx.top, fctx.bottom, fctx.fill, fctx.band
+        j, n = ctx.index, ctx.n
+        h = g.shape[-2] - top - bottom
+        gx = g[..., top:top + h, :].clone()
+        g_top, g_bot = g[..., :top, :], g[..., top + h:, :]
+        # the gradient of my top halo goes back up to the band that sent it,
+        # that of my bottom halo down; I receive those of my edge rows
+        from_above, from_below = _exchange(
+            ctx, g, g_top if j > 0 and top else None,
+            g_bot if j + 1 < n and bottom else None,
+            bottom if j > 0 else 0, top if j + 1 < n else 0)
+        if from_below is not None:   # my last `top` rows were the halo below
+            gx[..., h - top:, :] += from_below
+        if from_above is not None:   # my first `bottom` rows the halo above
+            gx[..., :bottom, :] += from_above
+        if fill == "edge":           # the replicated edge rows sum into the edge
+            if j == 0 and top:
+                gx[..., :1, :] += g_top.sum(dim=-2, keepdim=True)
+            if j + 1 == n and bottom:
+                gx[..., -1:, :] += g_bot.sum(dim=-2, keepdim=True)
+        return gx, None, None, None, None
 
 
 def halo(x, top, bottom, fill="zeros"):
@@ -111,47 +222,28 @@ def halo(x, top, bottom, fill="zeros"):
         return x
     if fill not in ("zeros", "edge"):
         raise ValueError(f"band.halo: fill must be 'zeros' or 'edge', got {fill!r}")
-    h = x.shape[-2]
-    if max(top, bottom) > h:
-        raise ValueError(f"band.halo: {top}/{bottom} halo rows from a band of {h} rows")
-    m, j, n = ctx.mesh, ctx.index, ctx.n
-    ranks = m.band_ranks
-    ops, sent = [], 0
-    above = below = None
-    shape = lambda k: (*x.shape[:-2], k, x.shape[-1])  # noqa: E731
-    # my last `top` rows are the top halo of the band below me; my first
-    # `bottom` rows the bottom halo of the band above
-    if j + 1 < n and top:
-        t = m.wire(x[..., h - top:, :])
-        ops.append(dist.P2POp(dist.isend, t, ranks[j + 1], group=m.band_group))
-        sent += t.numel() * t.element_size()
-    if j > 0 and bottom:
-        t = m.wire(x[..., :bottom, :])
-        ops.append(dist.P2POp(dist.isend, t, ranks[j - 1], group=m.band_group))
-        sent += t.numel() * t.element_size()
-    if j > 0 and top:
-        above = torch.empty(shape(top), dtype=x.dtype, device=m.comm_device)
-        ops.append(dist.P2POp(dist.irecv, above, ranks[j - 1], group=m.band_group))
-    if j + 1 < n and bottom:
-        below = torch.empty(shape(bottom), dtype=x.dtype, device=m.comm_device)
-        ops.append(dist.P2POp(dist.irecv, below, ranks[j + 1], group=m.band_group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    ctx.count("halo", sent)
+    if max(top, bottom) > x.shape[-2]:
+        raise ValueError(f"band.halo: {top}/{bottom} halo rows from a band of "
+                         f"{x.shape[-2]} rows")
+    return _Halo.apply(x, top, bottom, fill, ctx)
 
-    def edge(rows, k):
-        if fill == "zeros":
-            return x.new_zeros(shape(k))
-        return rows.expand(shape(k))
 
-    parts = []
-    if top:
-        parts.append(m.unwire(above) if above is not None else edge(x[..., :1, :], top))
-    parts.append(x)
-    if bottom:
-        parts.append(m.unwire(below) if below is not None else edge(x[..., -1:, :], bottom))
-    return torch.cat(parts, dim=-2)
+def _sum(ctx, t):
+    """t's float32 sum over the band group, in a new tensor; counts one
+    all-reduce."""
+    ctx.count("all_reduce", t.numel() * t.element_size())
+    return all_reduce(ctx.mesh, t.float().clone(), ctx.mesh.band_group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.band = ctx
+        return _sum(ctx, t)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _sum(fctx.band, g), None
 
 
 def all_reduce_sum(t):
@@ -159,19 +251,37 @@ def all_reduce_sum(t):
     ctx = _active()
     if t.dtype != torch.float32:
         raise ValueError(f"band.all_reduce_sum takes float32, got {t.dtype}")
-    ctx.count("all_reduce", t.numel() * t.element_size())
-    return all_reduce(ctx.mesh, t, ctx.mesh.band_group)
+    return _AllReduceSum.apply(t, ctx)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The gather; its backward keeps, of the full map's gradient summed
+    over the band group (an all-reduce in float32, counted as one), this
+    band's rows."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        m = ctx.mesh
+        sizes = ctx.scaled_rows(x.shape[-2])
+        fctx.band, fctx.sizes = ctx, sizes
+        ctx.count("all_gather", x[..., :1, :].numel() * max(sizes) * x.element_size())
+        return gather_dim(m, x, -2, m.band_group, m.band_ranks, sizes)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, sizes = fctx.band, fctx.sizes
+        total = g.float().contiguous().clone()
+        ctx.count("all_reduce", total.numel() * total.element_size())
+        total = all_reduce(ctx.mesh, total, ctx.mesh.band_group)
+        r0 = sum(sizes[:ctx.index])
+        return total[..., r0:r0 + sizes[ctx.index], :].to(g.dtype).contiguous(), None
 
 
 def all_gather_rows(x):
     """The full map (..., H, W) on every rank of the band group from each
     band's (..., h_j, W) rows (bands of unequal size padded to the largest
     for the transfer)."""
-    ctx = _active()
-    m = ctx.mesh
-    sizes = ctx.scaled_rows(x.shape[-2])
-    ctx.count("all_gather", x[..., :1, :].numel() * max(sizes) * x.element_size())
-    return gather_dim(m, x, -2, m.band_group, m.band_ranks, sizes)
+    return _AllGatherRows.apply(x, _active())
 
 
 def rows_of(full, h_local):
@@ -182,7 +292,7 @@ def rows_of(full, h_local):
     return full[..., r0:r0 + h_local, :].contiguous()
 
 
-def expected_counts(cfg):
+def expected_counts(cfg, backward=False):
     """Collectives of one band-sharded forward of `cfg`, per rank, worked out
     from the model's structure (a rank at the image's edge counts its halo
     calls too, though it has one neighbour):
@@ -200,8 +310,18 @@ def expected_counts(cfg):
     - all_gather, one per run of global-attention blocks: the pyramid UNet,
       each MRT, the global refiner's UNet, each local refiner step's UNet;
     - all_reduce, two per GroupNorm (the stem's): the sums and counts, then
-      the squared deviations."""
+      the squared deviations.
+
+    With backward=True, the counts of a training step's forward and
+    backward together (the model's parameters taking gradients): each
+    halo's and all-reduce's backward is one more collective of its kind,
+    except the halo of the 1x mask's RGB ConvT, whose input, the image,
+    takes no gradient; each gather's backward is an all-reduce."""
     ntr, r = cfg.num_transformer, cfg.refine_iter
     halo_n = 5 + 15 + 3 * ntr + 17 + 2 + 26 * r + 2 + 1 + 3 + (6 if cfg.output_upsample
                                                               else 1)
-    return {"halo": halo_n, "all_reduce": 2, "all_gather": 2 + ntr + r}
+    counts = {"halo": halo_n, "all_reduce": 2, "all_gather": 2 + ntr + r}
+    if backward:
+        counts = {"halo": 2 * halo_n - 1, "all_reduce": 4 + counts["all_gather"],
+                  "all_gather": counts["all_gather"]}
+    return counts

@@ -12,7 +12,12 @@ stream of the scanline blocks): a bf16 engine whose qualifying convs and
 linears run as int8 sites (`models/quant.py`, kernel E on the card), with
 static activation scales from a calibration pass (s2m2_tpu/runtime/
 engine.py:95-276). An int8 engine calibrates on its first input or
-raises; it never serves bf16 in place of int8.
+raises; it never serves bf16 in place of int8. The JAX package's two int8
+opt-ins are constructor arguments, fixed for the engine's life so that its
+calibration and its inference agree (the JAX flags' calib_contract):
+`int8_attn=True` runs the attention cores without PE in int8 (kernel F on
+the card), `int8_acc_bf16=True` rounds every int8 GEMM's accumulator to
+bf16 (kernel E's bf16-accumulator epilogue); both need an int8 precision.
 
 Mesh (`mesh=parallel.mesh.make_mesh(...)`, the counterpart of the JAX
 engine's `mesh` / `in_shardings`): SPMD, every rank calls `run` /
@@ -86,13 +91,15 @@ class StereoEngine:
     `fused_block=True` runs the MRT's scanline blocks with C, E <= 512 as one
     fused kernel each (kernel D); `self.model.set_fused_block` flips it.
     An int8 engine (`precision="int8" | "int8a" | "int8r"`) calibrates on
-    its first input, or on `calibrate()` / `load_calibration()` beforehand.
+    its first input, or on `calibrate()` / `load_calibration()` beforehand;
+    `int8_attn` and `int8_acc_bf16` are its opt-ins (module docstring).
     """
 
     def __init__(self, model_type_or_cfg="S", *, checkpoint: Optional[str] = None,
                  precision: str = "bf16", use_positivity: bool = True,
                  refine_iter: int = 3, seed: int = 0, device=None,
-                 fused_block: bool = False, mesh=None):
+                 fused_block: bool = False, mesh=None, int8_attn: bool = False,
+                 int8_acc_bf16: bool = False):
         if isinstance(model_type_or_cfg, ModelConfig):
             self.cfg = model_type_or_cfg
         else:
@@ -100,13 +107,17 @@ class StereoEngine:
                                   refine_iter=refine_iter)
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-        # int8a: int8 only on 128-aligned GEMMs; int8r: int8 plus the int8
-        # residual stream. Both are per engine and go into every quant
-        # context, so variants coexist in one process.
         self.precision_name = precision
         self.quantize = precision.startswith("int8")
-        self.quant_aligned = precision == "int8a"
-        self.quant_residency = precision == "int8r"
+        if (int8_attn or int8_acc_bf16) and not self.quantize:
+            raise ValueError(f"int8_attn and int8_acc_bf16 need an int8 precision, "
+                             f"not {precision!r}")
+        # the site policies and opt-ins of every quant context of this engine
+        # (int8a: int8 only on 128-aligned GEMMs; int8r: int8 plus the int8
+        # residual stream), per engine, so variants coexist in one process
+        self.quant_policy = dict(aligned=precision == "int8a", skip_fp32=True,
+                                 residency=precision == "int8r", attn=bool(int8_attn),
+                                 acc_bf16=bool(int8_acc_bf16))
         self.quant_scales = None  # set by calibrate() / load_calibration()
         self.quant_gemms = 0      # quantized GEMMs the calibration pass saw
         self.mesh = mesh
@@ -174,8 +185,7 @@ class StereoEngine:
             raise RuntimeError("int8 engine is not calibrated: call calibrate() or "
                                "load_calibration() (run() and forward_padded() "
                                "calibrate on their first input)")
-        with quant.quantized(self.quant_scales, aligned=self.quant_aligned,
-                             skip_fp32=True, residency=self.quant_residency):
+        with quant.quantized(self.quant_scales, **self.quant_policy):
             return self.model(a, b)
 
     @torch.inference_mode()
@@ -190,9 +200,7 @@ class StereoEngine:
             raise RuntimeError(f"calibrate(): a {self.precision_name} engine has no "
                                "int8 sites")
         quant.strip_model(self.model)  # observe runs on the float weights
-        with quant.observe(aligned=self.quant_aligned, skip_fp32=True,
-                           residency=self.quant_residency,
-                           percentile=percentile) as obs:
+        with quant.observe(percentile=percentile, **self.quant_policy) as obs:
             self.model(*self._images(img0, img1))
         if not obs:
             raise ValueError(
@@ -225,7 +233,7 @@ class StereoEngine:
 
     def _prequantize(self):
         quant.strip_model(self.model)
-        quant.quantize_model(self.model, aligned=self.quant_aligned, skip_fp32=True)
+        quant.quantize_model(self.model, aligned=self.quant_policy["aligned"], skip_fp32=True)
 
     def save_calibration(self, path):
         """Save the int8 activation scales (.npy), as the JAX engine does."""

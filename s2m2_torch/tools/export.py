@@ -196,8 +196,7 @@ def export_quantized_forward(engine, height: int, width: int, batch: int = 1) ->
     scales = [float(s) for s in engine.quant_scales]
 
     def context():
-        return quant.quantized(scales, aligned=engine.quant_aligned, skip_fp32=True,
-                               residency=engine.quant_residency)
+        return quant.quantized(scales, **engine.quant_policy)
 
     program = _trace(_Functional(engine.model, engine.compute_dtype, context),
                      (quantized_state(engine), *_images(batch, height, width,

@@ -23,30 +23,33 @@ A, B and C run in the forward and their backward recomputes their plain
 versions (ops/_grad.py); the fused block (D) and the int8 sites (E) raise
 under grad.
 
-Data parallel (`mesh`, n_data x 1): each data rank takes its slice of the
-batch. The loss normalises by the batch's supervised pixels, so the ranks
-first sum their counts (`loss.valid_counts`): each rank's loss is then its
-share of the whole batch's, the gradients are summed over the data group,
-and the clip sees the global gradient norm, so every rank takes the same
-step; the metrics are summed the same way. Band sharding in training
-raises (`BAND_TRAINING`).
+Over a mesh (`mesh`, n_data x n_band): each rank takes its data slice of
+the batch and, with n_band > 1, its band's rows of every image and map
+(`shard_batch`, whole 32-row blocks by `mesh.band_rows`), and runs the
+forward as that band (`parallel.band.sharded`), whose collectives carry
+their gradients back (parallel/band.py). The loss normalises by the batch's
+supervised pixels, so the ranks first sum their counts over the world
+group, band and data together (`loss.valid_counts`; each band holds whole
+32-row blocks, so the quarter-grid counts are row-local): each rank's loss
+is then its share of the whole batch's. The gradients and the metrics are
+summed over the world group the same way, so the clip sees the global
+gradient norm and every rank takes the same step. Each rank runs the 1/32
+global blocks on the gathered map, so its gradients of their parameters
+are partial; the sum completes them as it does every other parameter's.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..parallel.mesh import all_reduce, data_slice, replicated
+from ..parallel import band
+from ..parallel.mesh import all_reduce, band_rows, data_slice, image_sharding, replicated
 from .loss import sequence_loss, valid_counts
 
 BATCH_KEYS = ("img0", "img1", "gt_disp", "valid", "gt_nonocc")
-BAND_TRAINING = (
-    "band-sharded training (a mesh with n_band > 1) is not ported: it needs the "
-    "backward rules of band sharding (the halo exchange's gradient sent back and "
-    "added into the neighbour's edge rows, the bottleneck gather's gradient "
-    "reduce-scattered, GroupNorm's statistics all-reduced in the backward, parameter "
-    "gradients summed over band and data); train on a DATAx1 mesh")
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
 
@@ -181,15 +184,19 @@ def make_loss_fn(model, compute_dtype=None):
     return loss_fn
 
 
-def value_and_grad(loss_fn, params, batch, mesh=None):
+def value_and_grad(loss_fn, params, batch, mesh=None, rows=None):
     """(metrics, grads): the loss's metrics (detached) and its gradient with
-    respect to every entry of `params`. With a data-parallel `mesh`, `batch`
-    is this rank's slice and both are the whole batch's (module docstring)."""
-    group = None if mesh is None else mesh.data_group
+    respect to every entry of `params`. With a `mesh` of more than one rank,
+    `batch` is this rank's shard (`shard_batch`) and both are the whole
+    batch's (module docstring); `rows`, every band's rows at full
+    resolution (`band_rows`), runs the forward as this rank's band."""
+    group = None if mesh is None else mesh.world_group
     counts = None
     if group is not None:
         counts = all_reduce(mesh, valid_counts(batch["valid"]), group)
-    total, metrics = loss_fn(params, batch, counts)
+    banded = band.sharded(mesh, rows) if rows is not None else contextlib.nullcontext()
+    with banded:
+        total, metrics = loss_fn(params, batch, counts)
     grads = torch.autograd.grad(total, list(params.values()))
     metrics = {k: v.detach() for k, v in metrics.items()}
     if group is not None:
@@ -197,16 +204,30 @@ def value_and_grad(loss_fn, params, batch, mesh=None):
         grads = [f.view_as(g).to(g.dtype)
                  for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
         summed = all_reduce(mesh, torch.stack([v.float() for v in metrics.values()]),
-                                group)
+                            group)
         metrics = dict(zip(metrics, summed.unbind()))
     return metrics, dict(zip(params, grads))
 
 
+def batch_rows(batch, mesh):
+    """Every band's rows of the batch's (B, H, W, C) images at full
+    resolution (`band_rows`; raises unless H splits into whole 32-row blocks
+    per band), or None without band sharding."""
+    if mesh is None or mesh.n_band == 1:
+        return None
+    return band_rows(batch["img0"].shape[1], mesh.n_band)
+
+
 def shard_batch(batch, mesh):
-    """This data rank's slice of every (B, ...) entry of a batch dict."""
-    if mesh is None or mesh.n_data == 1:
+    """This rank's shard of every (B, H, ...) entry of a batch dict: its data
+    slice of B and, with n_band > 1, its band's rows of H."""
+    if mesh is None or mesh.size == 1:
         return batch
-    return {k: data_slice(mesh, v) for k, v in batch.items()}
+    if mesh.n_band == 1:
+        return {k: data_slice(mesh, v) for k, v in batch.items()}
+    sharding = image_sharding(mesh)
+    # `shard` raises on a height that does not split into 32-row blocks
+    return {k: sharding.shard(v) for k, v in batch.items()}
 
 
 def make_train_step(cfg, model, optimizer, compute_dtype=None, mesh=None):
@@ -215,12 +236,10 @@ def make_train_step(cfg, model, optimizer, compute_dtype=None, mesh=None):
     float32 arrays or tensors {img0, img1, gt_disp, valid[, gt_nonocc]}.
     `optimizer` (from `make_optimizer`) is initialised on the parameters
     unless it already holds a state. `cfg` is the model's configuration.
-    With a `mesh` (n_data x 1) every rank passes the whole batch and takes
-    its slice; the parameters are made equal on every rank first."""
+    With a `mesh` every rank passes the whole batch and takes its shard
+    (`shard_batch`); the parameters are made equal on every rank first."""
     if model.cfg != cfg:
         raise ValueError("make_train_step: cfg is not the model's configuration")
-    if mesh is not None and mesh.n_band > 1:
-        raise NotImplementedError(BAND_TRAINING)
     if mesh is not None:
         replicated(mesh)(model)
     params = dict(model.named_parameters())
@@ -230,8 +249,10 @@ def make_train_step(cfg, model, optimizer, compute_dtype=None, mesh=None):
     device = next(iter(params.values())).device
 
     def train_step(batch):
+        rows = batch_rows(batch, mesh)
         metrics, grads = value_and_grad(loss_fn, params,
-                                        as_batch(shard_batch(batch, mesh), device), mesh)
+                                        as_batch(shard_batch(batch, mesh), device), mesh,
+                                        rows)
         optimizer.update(params, grads)
         return metrics
     return train_step

@@ -9,11 +9,11 @@ engine runs under `inference_mode` and is not for training), with its
 parameters as the fp32 masters; the fused block stays off, so every
 scanline block runs through kernels A and B on the card.
 
-With `mesh` (`parallel.mesh.make_mesh(n_data, 1, ...)`, every rank running
-`train` on the same stream of batches) each data rank trains on its slice
-of every batch, and all ranks take the same step (train/step.py); only
-global rank 0 logs and writes checkpoints. A mesh with n_band > 1 raises
-NotImplementedError (`step.BAND_TRAINING`).
+With `mesh` (`parallel.mesh.make_mesh(n_data, n_band, ...)`, every rank
+running `train` on the same stream of batches) each rank trains on its
+shard of every batch: its data slice and, with n_band > 1, its band of
+rows, whole 32-row blocks (train/step.py); all ranks take the same step,
+and only global rank 0 logs and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 from ..config import ModelConfig
 from ..models.init import init_params
 from ..models.s2m2 import S2M2
-from .step import BAND_TRAINING, make_optimizer, make_train_step
+from .step import make_optimizer, make_train_step
 
 
 def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
@@ -43,8 +43,6 @@ def train(cfg: ModelConfig, batches, *, num_steps=100, lr=1e-4, seed=0,
     `checkpoint_every`-th step after step 0 and at `num_steps` at the end.
     `device` defaults to "cuda" (the mesh's device with a mesh).
     Returns (model, optimizer, history)."""
-    if mesh is not None and mesh.n_band > 1:
-        raise NotImplementedError(BAND_TRAINING)
     if device is None:
         device = "cuda" if mesh is None else mesh.device
     device = torch.device(device)

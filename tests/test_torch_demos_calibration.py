@@ -91,9 +91,12 @@ def test_train_demo_defaults(tmp_path, monkeypatch, capsys):
 
 
 def test_train_demo_refuses_mesh(monkeypatch, capsys):
-    """A mesh with bands (here 2x4) is refused before any rank starts: band
-    sharding in training is not ported (data parallel is, see
-    tests/test_torch_parallel_train.py)."""
-    assert run_cli("train_demo", ["--mesh", "2x4", "--device", "cpu"], monkeypatch) != 0
-    assert "band-sharded training (a mesh with n_band > 1) is not ported" in \
-        capsys.readouterr().err
+    """A mesh whose bands the crop cannot hold (here 2x4 with 96 rows: 3
+    blocks of 32 for 4 bands) and a mesh spec that is not DATAxBAND are
+    refused before any rank starts. Band-sharded training itself runs
+    (tests/test_torch_band_train.py)."""
+    assert run_cli("train_demo", ["--mesh", "2x4", "--height", "96", "--device", "cpu"],
+                   monkeypatch) == 2
+    assert "fewer than the 4 bands" in capsys.readouterr().err
+    assert run_cli("train_demo", ["--mesh", "2by4", "--device", "cpu"], monkeypatch) == 2
+    assert "--mesh takes DATAxBAND" in capsys.readouterr().err

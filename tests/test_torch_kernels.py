@@ -490,3 +490,104 @@ def test_custom_ops_equal_direct_launches_on_card(cuda, dtype):
             for a, b in zip(got, want, strict=True):
                 assert a.shape == b.shape and a.dtype == b.dtype and a.stride() == b.stride()
                 assert torch.equal(a, b), counter
+
+
+def test_int8_attention_takes_the_plain_version_on_cpu_and_checks_inputs():
+    from s2m2_torch.ops import int8_attention as ia
+    rng = np.random.default_rng(0)
+    _build.reset_launch_counts()
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 20, 16)).astype(np.float32))
+               for _ in range(3))
+    out = ia.int8_attention(q, k, v, 0.03, 0.03, 0.03)
+    assert out.shape == q.shape and out.dtype == q.dtype and torch.isfinite(out).all()
+    assert all(n == 0 for n in _build.launch_counts.values())
+    with pytest.raises(TypeError):
+        ia.int8_attention(q, k.double(), v, 0.03, 0.03, 0.03)
+    with pytest.raises(ValueError):
+        ia.int8_attention(q, k[:, :, :8], v, 0.03, 0.03, 0.03)
+    with pytest.raises(ValueError):
+        ia.int8_attention(q, k, v[:2], 0.03, 0.03, 0.03)
+    m = ia.int8_attention(q.to("meta"), k.to("meta"), v.to("meta"), 0.03, 0.03, 0.03)
+    assert m.device.type == "meta" and m.shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_shape,nk", [((4, 304, 128), 304), ((8, 152, 64), 152),
+                                        ((16, 76, 64), 76), ((16, 1216, 32), 1216),
+                                        ((3, 70, 24), 70), ((2, 40, 16), 100),
+                                        ((2, 100, 384), 65)])
+def test_int8_attention_kernel_matches_plain_on_card(cuda, q_shape, nk, dtype):
+    """Kernel F against its plain version: the S shapes of the int8_attn
+    route (N = 304, 152, 76 and the 1216-token map), a padded head (24), keys
+    fewer and more than queries, and a head of 384 (three column passes).
+    Each row within two quanta of its probabilities (2 s_v pmax_row: the
+    kernel's p = rint(127 e) may differ by one from rint(attn 127 / pmax)
+    where that lies within float32 rounding of a half) plus the output's
+    rounding, and few elements beyond the rounding (`agreement`)."""
+    from s2m2_torch.ops import int8_attention as ia
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, n, d = q_shape
+    q = torch.randn(q_shape, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, nk, d), generator=g, device=cuda).to(dtype) * s for s in (1.5, 2.0))
+    s_q, s_k, s_v = (float(x.float().abs().max()) / 127 for x in (q, k, v))
+    before = _build.launch_counts["int8_attention"]
+    got = ia.int8_attention(q, k, v, s_q, s_k, s_v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    res = ia.agreement(got, q, k, v, s_q, s_k, s_v)
+    assert res["ok"], res
+
+
+def test_int8_attention_agreement_catches_a_wrong_scale():
+    """The card test's rule, on the CPU: the plain output itself passes; the
+    same output 5% off in scale, or one row's output off by a tenth, fails."""
+    from s2m2_torch.ops import int8_attention as ia
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 304, 64)).astype(np.float32) * s)
+               for s in (1.0, 1.5, 2.0))
+    sc = [float(x.abs().max()) / 127 for x in (q, k, v)]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        want = ia.int8_attention_plain(q, k, v, *sc)
+        assert ia.agreement(want, q, k, v, *sc)["ok"]
+        assert not ia.agreement((want.float() * 1.05).to(dtype), q, k, v, *sc)["ok"]
+        row = want.clone()
+        row[1, 7] = (row[1, 7].float() * 1.1).to(dtype)
+        assert not ia.agreement(row, q, k, v, *sc)["ok"]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,conv,n", [((2, 70, 96), None, 80),
+                                          ((1, 128, 24, 38), (3, 3, 1, 1, 1, 1), 128),
+                                          ((1, 48, 17, 30), (3, 3, 2, 2, 1, 1), 64)])
+def test_int8_gemm_acc_bf16_epilogue_matches_plain_on_card(cuda, shape, conv, n, out_dtype):
+    """Kernel E's bf16-accumulator epilogue (int8_acc_bf16) against its plain
+    version, in row mode and in conv mode (TMA taps, gathered taps): within
+    one ulp of the output dtype."""
+    from s2m2_torch.ops import int8_gemm as ig
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    inv = ig.inv_scale(float(x.float().abs().max()) / 127.0)
+    if conv is None:
+        a = ig.quantize_pack(x, inv)
+        w_q = torch.randint(-127, 128, (n, a.shape[1]), generator=g, device=cuda,
+                            dtype=torch.int8)
+        nchw = None
+    else:
+        a = ig.quantize_pack(x, inv, nhwc=True)
+        w_q = torch.randint(-127, 128, (n, conv[0] * conv[1] * a.shape[3]), generator=g,
+                            device=cuda, dtype=torch.int8)
+        b, _, h, wd = x.shape
+        nchw = (b, *ig.conv_out_hw(h, wd, conv))
+    s_w = torch.rand((n,), generator=g, device=cuda) * 1e-3
+    bias = torch.randn((n,), generator=g, device=cuda)
+    got = ig.int8_gemm(a, w_q, s_w, 1.0 / inv, bias, out_dtype, conv=conv, nchw=nchw,
+                       acc_bf16=True)
+    want = ig.int8_gemm_plain(a, w_q, s_w, 1.0 / inv, bias, out_dtype, conv=conv,
+                              acc_bf16=True)
+    if nchw is not None:
+        want = ig._rows_to_nchw(want, nchw)
+    _ulp_close(got, want)
+    plain = ig.int8_gemm(a, w_q, s_w, 1.0 / inv, bias, out_dtype, conv=conv, nchw=nchw)
+    assert not torch.equal(plain, got)  # the epilogue changes the rounding

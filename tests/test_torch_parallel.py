@@ -1,8 +1,10 @@
 """The port's band-sharded forward (`StereoEngine(mesh=...)`, s2m2_torch/
 parallel/) on gloo ranks of the CPU against its unsharded forward, within
 the JAX test's 5e-5 (tests/test_parallel.py:38-39): 1x4 and 2x2 meshes with
-the fused block off and on, an output_upsample config, and a 160-row pair
-on 2 bands (96 + 64 rows) and on 3 (64 + 64 + 32). Each rank counts the
+the fused block off and on, an output_upsample config (and its
+negative-disparity twin, whose confidence is held by the JAX package's
+rule for discrete sensitivity), and a 160-row pair on 2 bands (96 + 64
+rows) and on 3 (64 + 64 + 32). Each rank counts the
 collectives of its forward, which must equal the counts worked out from the
 config (`band.expected_counts`); the forward with no mesh issues none and
 its outputs are those of a 1x1 mesh to the bit. Then the engine's own
@@ -43,18 +45,29 @@ def sharded(tmp_path_factory):
 
 @pytest.mark.parametrize("world,index", IDS, ids=[CASES[w][i][0] for w, i in IDS])
 def test_band_sharded_forward_matches_unsharded(sharded, world, index):
-    """Within 5e-5 of the unsharded forward. The config with negative
-    disparities allowed is held to the larger of 5e-5 and twice what a 1e-6
-    relative change of the input moves the unsharded forward (the JAX int8
-    test's intrinsic-sensitivity rule, tests/test_parallel.py:130-137): on
-    this pair its confidence moves 8e-3 under such a change, and as much
-    between two thread counts of the unsharded forward."""
+    """Every output within 5e-5 of the unsharded forward, with one
+    exception: the confidence of the config with negative disparities
+    allowed (disp and occ stay at 5e-5). Its confidence moves in discrete
+    quanta: one quarter-grid pixel that flips moves a patch of about 28 x 28
+    output pixels by up to 4e-3, and a 1e-6 relative change of image a
+    alone flips some. So that conf is held to the JAX package's rule for a
+    route with discrete sensitivity (tests/test_parallel.py:121-137): max
+    |d| < max(2 C, 0.02) and the 99th percentile below half of that, C
+    being the largest change of the unsharded forward over four 1e-6
+    relative changes of the input (a and b, each times 1 + 1e-6 and 1 -
+    1e-6). The band seams stay held at 5e-5 by the positivity
+    output_upsample case beside it, the same code apart from the matcher's
+    mask and the refiner's clamps, both row-local."""
     case = CASES[world][index][1]
     for rank, results in enumerate(sharded[world]):
         res = results[index]
-        controls = res["control"] or [0.0] * 3
-        for err, control, name in zip(res["err"], controls, ("disp", "occ", "conf")):
-            assert err <= max(5e-5, 2 * control), (rank, name, err, control)
+        for i, (err, name) in enumerate(zip(res["err"], ("disp", "occ", "conf"))):
+            if name == "conf" and res["control"] is not None:
+                bound = max(2 * res["control"][i], 0.02)
+                assert err < bound, (rank, name, err, res["control"])
+                assert res["p99"][i] < bound / 2, (rank, name, res["p99"][i], bound)
+            else:
+                assert err <= 5e-5, (rank, name, err)
         if case["mesh"][1] > 1:
             assert res["counts"] == res["expected"], (rank, res["counts"], res["expected"])
 

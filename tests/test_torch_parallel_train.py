@@ -17,8 +17,10 @@ mean of per-rank losses would be wrong.
   of the same single-process step (1.0e-3).
 - The loss against the JAX package's loss on the same batch and weights,
   1e-5 relative; `train()` on the mesh gives the single process's losses.
-- Band sharding in training raises; the train demo runs with --mesh 2x1
-  and refuses --mesh 1x2 with the trainer's message."""
+- A band-sharded step refuses a height that does not split into whole
+  32-row blocks per band (band-sharded training itself:
+  tests/test_torch_band_train.py); the train demo runs with --mesh 2x1 and
+  refuses --mesh 1x2 with such a crop."""
 import os
 import subprocess
 import sys
@@ -131,12 +133,16 @@ def test_data_parallel_loss_matches_jax(dp):
 
 
 def test_band_sharded_training_raises():
+    """A batch of 48 rows does not split into whole 32-row blocks on 2 bands:
+    the step and the trainer raise before any collective."""
     cfg = ModelConfig(**TRAIN)
     mesh = Mesh(1, 2, 0, 0, torch.device("cpu"), "gloo")
-    with pytest.raises(NotImplementedError, match="halo exchange's gradient"):
-        tstep.make_train_step(cfg, S2M2(cfg), tstep.make_optimizer(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="DATAx1"):
-        train(cfg, iter([]), device="cpu", mesh=mesh)
+    batch = train_batch(h=48)
+    step = tstep.make_train_step(cfg, S2M2(cfg), tstep.make_optimizer(), mesh=mesh)
+    with pytest.raises(ValueError, match="not a multiple of 32"):
+        step(batch)
+    with pytest.raises(ValueError, match="not a multiple of 32"):
+        train(cfg, iter([batch]), device="cpu", mesh=mesh)
 
 
 def _demo(*args):
@@ -152,6 +158,6 @@ def test_train_demo_mesh():
     losses = [float(line.split("loss=")[1].split()[0])
               for line in ok.stdout.splitlines() if "loss=" in line]
     assert len(losses) == 2 and np.isfinite(losses).all(), ok.stdout
-    refused = _demo("--mesh", "1x2", "--steps", "1")
+    refused = _demo("--mesh", "1x2", "--steps", "1", "--height", "80")
     assert refused.returncode != 0
-    assert "band-sharded training (a mesh with n_band > 1) is not ported" in refused.stderr
+    assert "height 80 is not a multiple of 32" in refused.stderr

@@ -102,6 +102,129 @@ def primitives(h=96):
     return out
 
 
+def _seeded_module(mod, seed):
+    """`mod` with every parameter drawn from a seeded normal, times 0.2."""
+    for i, p in enumerate(mod.parameters()):
+        p.data = _seeded(p.shape, seed + i, 0.2)
+    return mod
+
+
+def primitive_grads(h=96):
+    """Each cross-row primitive's backward on this rank's band of an h-row
+    map against the unsharded autograd, on every rank: the gradient of a
+    seeded cotangent with respect to the band's input rows, and, for a
+    primitive with parameters, their gradients summed over the bands. The
+    backward runs after the band context has closed, as a training step
+    runs it. {case: (max |err| of the input's gradient over max(1, its
+    largest magnitude), relative L2 error of the parameters' gradient,
+    |mean|, collectives of the forward and backward)}."""
+    from s2m2_torch.models import layers
+    from s2m2_torch.models.attention import ConvBlock2D, GlobalAttnBlock
+    from s2m2_torch.models.layers import Conv, ConvT
+    from s2m2_torch.models.unet import global_blocks
+    from s2m2_torch.parallel import band
+    from s2m2_torch.parallel.mesh import all_reduce, band_rows, make_mesh
+    import torch.distributed as dist
+    mesh = make_mesh(1, dist.get_world_size(), device="cpu")
+    rows = band_rows(h, mesh.n_band)
+    conv = lambda *a, **k: _seeded_module(Conv(*a, **k), 1)  # noqa: E731
+    gw, gb = _seeded((16,), 5), _seeded((16,), 6)
+    gw.requires_grad_()
+    gb.requires_grad_()
+    gblock = _seeded_module(GlobalAttnBlock(16, 2), 7)
+    cases = {  # name: (op, its parameters, input channels, scale of the rows, mean)
+        "conv3x3": (conv(8, 6, 3), 8, 4, 0.0),
+        "conv5x5_s2": (conv(8, 6, 5, stride=2), 8, 1, 0.0),
+        "conv3x3_s2": (conv(8, 6, 3, stride=2), 8, 2, 0.0),
+        "conv3x1": (conv(8, 6, (3, 1)), 8, 4, 0.0),
+        "convT3x3": (_seeded_module(ConvT(4, 6, 3, padding=1), 3), 4, 1, 0.0),
+        "conv_block2d": (_seeded_module(ConvBlock2D(8), 11), 8, 4, 0.0),
+        "upsample2x_bilinear": (layers.upsample2x_bilinear, 8, 32, 0.0),
+        "unfold9": (layers.unfold9, 3, 4, 0.0),
+        "group_norm_mean0": (lambda x: layers.group_norm(x, gw, gb, 8), 16, 2, 0.0),
+        "group_norm_mean100": (lambda x: layers.group_norm(x, gw, gb, 8), 16, 2, 100.0),
+        "global_blocks": (lambda x: global_blocks(x, [gblock], []), 16, 32, 0.0),
+    }
+    params = {"group_norm_mean0": [gw, gb], "group_norm_mean100": [gw, gb],
+              "global_blocks": list(gblock.parameters())}
+    out = {}
+    for i, (name, (op, c, scale, mean)) in enumerate(cases.items()):
+        ps = params.get(name) or (list(op.parameters()) if hasattr(op, "parameters") else [])
+        x = _seeded((2, c, h // scale, 20), 10 + i, 1.0, mean).requires_grad_()
+        y = op(x)
+        cot = _seeded(y.shape, 40 + i)
+        want = torch.autograd.grad(y, [x, *ps], cot)
+        r0, n = sum(rows[:mesh.band]) // scale, rows[mesh.band] // scale
+        xl = x.detach()[:, :, r0:r0 + n].clone().requires_grad_()
+        band.reset_counts()
+        with band.sharded(mesh, rows):
+            yl = op(xl)
+        f = y.shape[2] / x.shape[2]
+        got = torch.autograd.grad(yl, [xl, *ps], cot[:, :, int(r0 * f):int((r0 + n) * f)])
+        ref = want[0][:, :, r0:r0 + n]
+        err = float((got[0] - ref).abs().max() / max(1.0, float(ref.abs().max())))
+        rel = 0.0  # parameters: the bands' partial sums, relative L2
+        if ps:
+            total = torch.cat([all_reduce(mesh, g.clone(), mesh.band_group).reshape(-1)
+                               for g in got[1:]])
+            ref = torch.cat([w.reshape(-1) for w in want[1:]])
+            rel = float(torch.linalg.vector_norm(total - ref) / torch.linalg.vector_norm(ref))
+        out[name] = (err, rel, abs(mean), band.last_counts()["counts"])
+    return out
+
+
+def train_band(mesh, h=96, cfg=None, steps=0, seed=3, w=96, batch_path=None):
+    """One AdamW step of `cfg` (default TRAIN) over a (data, band) `mesh` on
+    this rank's shard of `train_batch(h=h, w=w, seed=seed)` (or of the batch
+    saved at `batch_path`, an .npz of its arrays): the loss's
+    metrics, the gradients, the parameters after the step, and the band
+    collectives of the step's forward and backward beside the counts worked
+    out from the config; with `steps`, `train()`'s losses over that many
+    steps. Rank 0 also does both in one process on the whole batch."""
+    from s2m2_torch.config import ModelConfig
+    from s2m2_torch.models.init import init_params
+    from s2m2_torch.models.s2m2 import S2M2
+    from s2m2_torch.parallel import band
+    from s2m2_torch.parallel.mesh import make_mesh
+    from s2m2_torch.train import step as tstep
+    from s2m2_torch.train.trainer import train
+    cfg = ModelConfig(**(cfg or TRAIN))
+    if batch_path is None:
+        batch = train_batch(h=h, w=w, seed=seed)
+    else:
+        with np.load(batch_path) as z:
+            batch = {k: z[k] for k in z.files}
+
+    def one_step(m):
+        model = S2M2(cfg)
+        model.load_state_dict(init_params(cfg, seed=0))
+        params = dict(model.named_parameters())
+        opt = tstep.make_optimizer(lr=1e-3)
+        opt.init(params)
+        part = tstep.as_batch(tstep.shard_batch(batch, m), "cpu")
+        band.reset_counts()
+        metrics, grads = tstep.value_and_grad(tstep.make_loss_fn(model), params, part, m,
+                                              tstep.batch_rows(batch, m))
+        counts = band.last_counts()["counts"]
+        opt.update(params, grads)
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {k: g.numpy() for k, g in grads.items()},
+                "params": {k: p.detach().numpy().copy() for k, p in params.items()},
+                "counts": counts, "shard": tuple(part["img0"].shape)}
+
+    def losses(m):
+        _, _, hist = train(cfg, iter([batch] * steps), num_steps=steps, lr=1e-3,
+                           log_every=1, log=lambda _: None, device="cpu", mesh=m)
+        return [x["loss"] for x in hist]
+
+    m = make_mesh(*mesh, device="cpu")
+    out = {"band": one_step(m), "expected": band.expected_counts(cfg, backward=True),
+           "losses": losses(m) if steps else None}
+    if m.rank == 0:
+        out.update(single=one_step(None), single_losses=losses(None) if steps else None)
+    return out
+
+
 def forward(cases):
     """Each case's forward through `StereoEngine(mesh=...)` on the CPU in
     float32 against the unsharded engine's, with the band collectives it
@@ -123,10 +246,20 @@ def forward(cases):
         ref = ref_eng.forward_padded(a, b)
         got = StereoEngine(cfg, mesh=meshes[(nd, nb)], **kw).forward_padded(a, b)
         control = None
-        if case.get("control"):  # the unsharded forward under a 1e-6 relative change
-            pert = ref_eng.forward_padded(a * np.float32(1 + 1e-6), b)
-            control = [float((p - r).abs().max()) for p, r in zip(pert, ref)]
-        out.append({"err": [float((g - r).abs().max()) for g, r in zip(got, ref)],
+        if case.get("control"):
+            # the unsharded forward's largest change under four 1e-6
+            # relative changes of the input: a, then b, each times 1 + 1e-6
+            # and 1 - 1e-6
+            control = [0.0, 0.0, 0.0]
+            for sign in (1, -1):
+                f = np.float32(1 + sign * 1e-6)
+                for pert in (ref_eng.forward_padded(a * f, b),
+                             ref_eng.forward_padded(a, b * f)):
+                    control = [max(c, float((p - r).abs().max()))
+                               for c, p, r in zip(control, pert, ref)]
+        diffs = [(g - r).abs() for g, r in zip(got, ref)]
+        out.append({"err": [float(d.max()) for d in diffs],
+                    "p99": [float(np.percentile(d.numpy(), 99)) for d in diffs],
                     "control": control,
                     "counts": band.last_counts()["counts"] if nb > 1 else None,
                     "expected": band.expected_counts(cfg),
