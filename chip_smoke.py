@@ -30,11 +30,14 @@ non-zero:
    `ops.fused_block.plan` chose, and, beside it, the port's unfused block on
    the same rows (float32 bounds of A, B and D by split TF32); F (the int8
    attention core of the int8_attn opt-in, 10 back-to-back calls a sample)
-   at the shapes one S int8_attn forward gives it (`int8_attn_shapes`: N =
-   304, 152, 76 and the 1216-token map), each row within two probability
-   quanta of its plain version (2 s_v pmax_row) plus the rounding, and at
-   most 1% of the elements beyond the rounding
-   (`ops.int8_attention.agreement`), its bound in int8 operations; then E's bf16-accumulator
+   at the shapes one S and one XL int8_attn forward give it
+   (`int8_attn_shapes`: N = 304, 152, 76 and the 1216-token map), each
+   record naming the `ops.int8_attention.plan` that ran, each row within two
+   probability quanta of its plain version (2 s_v pmax_row) plus the
+   rounding, and at most 1% of the elements beyond the rounding
+   (`ops.int8_attention.agreement`), a repeat launch and the custom op's
+   launch bitwise equal to the first, its bound in bytes and int8
+   operations; then E's bf16-accumulator
    epilogue (int8_acc_bf16) within one ulp of its plain version at three
    S geometries (`E_ACC_BF16_CASES`), timed beside the int32 epilogue;
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
@@ -218,9 +221,10 @@ ATTENTION = ("scanline_attention", "scanline_cross_attention")
 # kernel C's float32 correlation is sequential FFMA (the plain version's
 # sum, which split TF32 cannot match at C = 384), so it is not in SPLIT_TF32
 SPLIT_TF32 = (*ATTENTION, "fused_basic_attn_block")
-# kernels timed over 10 back-to-back calls (one call kept as ms_single) and
-# also at every shape of an XL forward with the fused block off
-XL_TIMED = (*ATTENTION, "fused_correlation_ot")
+# kernels timed over 10 back-to-back calls (A, B and C keep one call as
+# ms_single) and also at every shape of an XL forward with the fused block
+# off (F: of an XL int8_attn forward)
+XL_TIMED = (*ATTENTION, "fused_correlation_ot", "int8_attention")
 # the exponential units: 16 results a clock on each of the H100's 132 SMs,
 # at the SM clock nvidia-smi reports as its maximum (phase 1 reads it)
 EXPS_PER_CLOCK = 16 * 132
@@ -442,10 +446,14 @@ def phase_build():
     gemm_notes = [ln.strip()[:160] for ln in
                   (_build.BUILD_DIR / "int8_gemm.log").read_text().splitlines()
                   if re.search(r"[1-9]\d* bytes spill|C7519|C7508|C7510|wgmma|setmaxnreg", ln)]
+    # kernel F: spills, and the compiler's notes on wgmma serialization
+    f_notes = [ln.strip()[:160] for ln in
+               (_build.BUILD_DIR / "int8_attention.log").read_text().splitlines()
+               if re.search(r"[1-9]\d* bytes spill|C75(0\d|1[0-8]|2\d)", ln)]
     emit({"phase": "build", "seconds": seconds, "native_seconds": native_seconds,
           "ptxas": ptxas,
           "scanline_attention_spill_lines": spills, "int8_gemm_notes": gemm_notes[:40],
-          "int8_gemm_note_count": len(gemm_notes)})
+          "int8_gemm_note_count": len(gemm_notes), "int8_attention_notes": f_notes[:20]})
     if spills:
         raise AssertionError(f"scanline_attention instances spill: {spills}")
     return native_seconds
@@ -462,6 +470,10 @@ def _max_err_ok(got, ref, dtype_name, kind):
         res = ia.agreement(got, *ref)
         return res["max_abs_err"], f"{res['bound']}; share {res['flipped_share']:.3e}", \
             res["ok"]
+    if kind in ("repeat", "custom_op"):
+        import torch
+        return float((got.float() - ref.float()).abs().max()), "bitwise equal", \
+            bool(torch.equal(got, ref))
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     err = float(diff.max())
@@ -505,12 +517,19 @@ def _kernel_case(name, shape, dtype, g, **kw):
     unfused = None
     if name == "int8_attention":
         from s2m2_torch.ops import int8_attention as ia
+        from s2m2_torch.ops import library  # noqa: F401  (registers the custom ops)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) * f
                    for f in (1.0, 1.5, 2.0))
         sc = [float(x.float().abs().max()) / 127 for x in (q, k, v)]
-        checks = [("quanta", ia.int8_attention(q, k, v, *sc), (q, k, v, *sc))]
+        got = ia.int8_attention(q, k, v, *sc)
+        # a repeat launch and the custom op (an exported program's launch)
+        # give the same bits
+        checks = [("quanta", got, (q, k, v, *sc)),
+                  ("repeat", ia.int8_attention(q, k, v, *sc), got),
+                  ("custom_op", torch.ops.s2m2_torch.int8_attention(q, k, v, *sc), got)]
         return checks, lambda: ia.int8_attention(q, k, v, *sc), \
-            lambda: ia.int8_attention_plain(q, k, v, *sc), None, None, None
+            lambda: ia.int8_attention_plain(q, k, v, *sc), None, None, \
+            ia.plan(shape[0], shape[1], shape[1], shape[2], dtype)._asdict()
     if name == "fused_basic_attn_block":
         n, w, c, heads = shape
         blk = seeded_block(c, heads).to(dev, dtype)
@@ -585,10 +604,14 @@ def phase_kernels(shapes, xl_shapes):
                                  "ok": ok})
                     if not ok:
                         failures.append((name, shape, dn, kind, err, limit))
-                reps = 10 if name in (*XL_TIMED, "int8_attention") else 1
+                reps = 10 if name in XL_TIMED else 1
+                # F's plain version at XL's shapes (float64 products of up to
+                # 512 x 304 x 304 x 384): fewer samples
+                plain_kw = {"n": 5, "warmup": 1, "reps": 2} if (
+                    name == "int8_attention" and model == "XL") else {"reps": reps}
                 rec = {"kernel": name, "model": model, "shape": list(shape), "dtype": dn,
                        "per_forward": per_forward, "checks": errs,
-                       "ms": time_ms(kern, reps=reps), "plain_ms": time_ms(plain, reps=reps),
+                       "ms": time_ms(kern, reps=reps), "plain_ms": time_ms(plain, **plain_kw),
                        "library_ms": time_ms(lib, reps=reps) if lib else None,
                        "bound_ms": max(bound(name, shape, dn)),
                        "bound_parts_ms": bound(name, shape, dn)}
@@ -597,8 +620,10 @@ def phase_kernels(shapes, xl_shapes):
                 if instance is not None and name in ATTENTION:
                     rec.update(instance=instance, ms_single=time_ms(kern),
                                library_ms_single=time_ms(lib))
-                elif name == "fused_correlation_ot":  # C: its plan, one call
-                    rec.update(plan=instance, ms_single=time_ms(kern))
+                elif name in ("fused_correlation_ot", "int8_attention"):  # C, F: the plan
+                    rec["plan"] = instance
+                    if name == "fused_correlation_ot":
+                        rec["ms_single"] = time_ms(kern)
                 elif instance is not None:  # D: the plan's instance
                     rec["instance"] = instance
                 emit({"phase": "kernels", **rec})
@@ -2684,7 +2709,7 @@ def _forward_sums(recs):
     for key in ("unfused_ms", "ms_single", "library_ms_single"):
         if key in recs[0]:
             sums[key] = tot(key)
-    if "plan" in recs[0]:
+    if "plan" in recs[0] and len(recs) == 1:  # one shape's plan (C's)
         sums["plan"] = recs[0]["plan"]
     return sums
 
@@ -2761,7 +2786,8 @@ def main():
         results = phase_kernels({**shapes, "fused_basic_attn_block":
                                  xl_blocks["fused_basic_attn_block"],
                                  "int8_attention": f_shapes},
-                                {k: xl_unfused[k] for k in XL_TIMED})
+                                {**{k: xl_unfused[k] for k in XL_TIMED if k in xl_unfused},
+                                 "int8_attention": int8_attn_shapes(get_config("XL"), H, W)})
         phase_e_acc_bf16()
         phase_probe()
     phase_golden(fused_block=False)

@@ -71,9 +71,9 @@ def _lib_path(name: str) -> Path:
 def _generated_headers(name: str) -> dict:
     """{file name: text} of the headers csrc/<name>.cu includes from the
     build directory: kernels A and B compile the instance table of
-    ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py and
-    kernel D that of ops/fused_block.py, so each table is kept in one
-    place."""
+    ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py,
+    kernel D that of ops/fused_block.py and kernel F the wgmma wrappers of
+    ops/int8_attention.py, so each table is kept in one place."""
     if name == "scanline_attention":
         from .flash_attention import instances_header
         return {"scanline_attention_instances.h": instances_header()}
@@ -83,6 +83,9 @@ def _generated_headers(name: str) -> dict:
     if name == "fused_basic_attn_block":
         from .fused_block import instances_header
         return {"fused_block_instances.h": instances_header()}
+    if name == "int8_attention":
+        from .int8_attention import instances_header
+        return {"int8_attention_instances.h": instances_header()}
     return {}
 
 

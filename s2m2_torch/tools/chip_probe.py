@@ -11,6 +11,8 @@
         --precision bf16,int8a,int8r --n 16 [--label NAME] [--via-ops] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py calib [--n 20] [--out FILE]
     python3 s2m2_torch/tools/chip_probe.py sensitivity [--seeds 4] [--out FILE]
+    python3 s2m2_torch/tools/chip_probe.py fattn [--label NAME] [--models S,XL]
+        [--forward] [--trace] [--out FILE]
 
 `fill`: kernel A in bf16 at head dim 32 with N = 1216 (S's 2D blocks) and at
 (B, 304, 128) (S's 1x scale), over a range of sequence counts B, with
@@ -118,6 +120,25 @@ each of `--seeds` seeded perturbations of it (every pixel times 1 + 1e-6
 u, u uniform in [-1, 1]). Each reading is taken over all 3 requests: the
 largest |d disp|, |d occ| and |d conf| and the mean |d disp|; the cell's
 line holds every reading and their maxima.
+
+`fattn`: kernel F (the int8_attn core) through its public wrapper at every
+shape one int8_attn forward of each of `--models` at 1216x1024 gives it
+(chip_smoke.py's `int8_attn_shapes`), in bf16 and float32, on chip_smoke
+phase 3's seeded inputs: CUDA events over 10 back-to-back calls (median of
+10), the device time under torch.profiler, `agreement` with the plain
+version, the shape's bound (bytes, int8 operations) and the host's us a
+call; each line carries the shape's launches a forward, so the sums a
+forward follow, and (this checkout) the shape's plan and how many blocks of
+it an SM holds; then the host us of each step of the wrapper at S's
+smallest shape (`fattn_dispatch`). With `--forward`, an S int8 engine with int8_attn (seed 0) calibrates, serves
+one request and runs one forward under torch.profiler: its device busy
+ms and F's kernels' share. It uses only the public wrapper and engine,
+so it also runs against an older checkout (`PYTHONPATH=<checkout>`). With
+`--trace`, kernel F is built with S2M2_F_TRACE into its own directory and,
+instead, each shape reports the share of a unit's cycles in each stage
+(the waits for Q and for each stage, pass 1's scores and row max, pass
+2's scores with the previous P V^T, its probabilities, its P V^T issue,
+the epilogue) and the producer's waits for a free stage.
 
 Every result is one JSON line on stdout (and appended to `--out`).
 """
@@ -891,6 +912,181 @@ def cmd_drift(args):
                   "device": torch.cuda.get_device_name(0)}, args.out)
 
 
+# F's kernels in a profile: the first version's; the redesign's prologue,
+# attention kernel and one-tile fused kernel
+F_KERNELS = ("int8_attention_kernel", "int8_attn_quantize_kernel", "int8_attn_kernel",
+             "int8_attn_fused_kernel")
+
+
+def _f_device_ms(prof):
+    """(all device ms, F's device ms) of a profile."""
+    import torch
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in evs) / 1e3,
+            sum(e.self_device_time_total for e in evs
+                if any(k in e.key for k in F_KERNELS)) / 1e3)
+
+
+def _f_by_kernel(fn, n=10):
+    """Device ms a call of each of F's kernels under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in F_KERNELS if k in e.key), "other")
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / n
+    return out
+
+
+def _f_occupancy(pl, dtype):
+    """Blocks of F's attention kernel an SM holds under plan `pl`, or None
+    where the checkout's library has no such query."""
+    import ctypes
+    import torch
+    from s2m2_torch.ops import _build
+    lib = _build.library("int8_attention")
+    if not hasattr(lib, "s2m2_int8_attention_occupancy"):
+        return None
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.s2m2_int8_attention_occupancy(
+        int(dtype == torch.bfloat16), pl.dch, int(pl.route == "fused"), pl.smem,
+        ctypes.byref(out)), "s2m2_int8_attention_occupancy")
+    return out.value
+
+
+# g_trace's slots in F's trace build (csrc/int8_attention.cu, S2M2_F_TRACE)
+F_TRACE = ("total", "q_wait", "p1_full_wait", "p1_scores", "p1_max", "p2_full_wait",
+           "p2_scores_pv_wait", "p2_probabilities", "p2_pv_issue", "epilogue", "units",
+           "producer_empty_wait", "producer_issue")
+
+
+def _f_trace(fn):
+    """The cycles of one call of `fn` in each stage of F's trace build,
+    summed over the units, and their share of the units' total."""
+    import ctypes
+    import torch
+    from s2m2_torch.ops import _build
+    lib = _build.library("int8_attention")
+    buf = (ctypes.c_ulonglong * 16)()
+    fn()
+    torch.cuda.synchronize()
+    lib.s2m2_int8_attention_trace(buf)  # zero the sums
+    fn()
+    torch.cuda.synchronize()
+    lib.s2m2_int8_attention_trace(buf)
+    sums = dict(zip(F_TRACE, (float(x) for x in buf)))
+    units = max(sums["units"], 1.0)
+    return {"units": sums["units"], "mcycles_per_unit": sums["total"] / units / 1e6,
+            "share_of_total": {k: v / max(sums["total"], 1.0) for k, v in sums.items()
+                               if k not in ("total", "units")}}
+
+
+def _f_dispatch(ia, dev):
+    """Host us of each step of F's wrapper at S's smallest shape, (64, 76,
+    64) bf16: the whole wrapper, the direct launch, and its parts."""
+    import torch
+    from s2m2_torch.ops import _build
+    from s2m2_torch.ops._grad import refuse_grad
+    shape, dtype = (64, 76, 64), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3))
+    sc = [float(x.float().abs().max()) / 127 for x in (q, k, v)]
+    dev = q.device  # with its index
+    pl = ia.plan(*shape[:2], shape[1], shape[2], dtype)
+    out = torch.empty_like(q)
+    entry = _build.entry("int8_attention", *ia._ENTRY)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0, pl.workspace,
+            *shape[:2], shape[1], shape[2], *ia.scales(*sc, shape[2]), 1, pl.stages)
+    steps = {"wrapper": lambda: ia.int8_attention(q, k, v, *sc),
+             "direct_launch": lambda: ia._kernel(q, k, v, *sc),
+             "c_entry_via_call": lambda: _build.call(entry, dev, "int8_attention", *args),
+             "c_entry_bare": lambda: entry[1](*args, torch._C._cuda_getCurrentRawStream(
+                 dev.index)),
+             "check": lambda: ia.check(q, k, v),
+             "via_op": lambda: _build.via_op(q),
+             "refuse_grad": lambda: refuse_grad("int8_attention", q, k, v),
+             "plan": lambda: ia.plan(*shape[:2], shape[1], shape[2], dtype),
+             "scales": lambda: ia.scales(*sc, shape[2]),
+             "empty_like": lambda: torch.empty_like(q),
+             "workspace": lambda: ia._workspace(dev, pl.workspace)}
+    return {"shape": list(shape), "host_us": {k: host_us(fn, n=300) for k, fn in steps.items()}}
+
+
+def cmd_fattn(args):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    import s2m2_torch
+    from s2m2_torch.config import get_config
+    from s2m2_torch.ops import _build
+    if args.trace:  # a measurement build of kernel F, in its own directory
+        _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, "-DS2M2_F_TRACE=1")
+        _build.BUILD_DIR = _build.BUILD_DIR.parent / "s2m2_torch_trace"
+    from s2m2_torch.ops import int8_attention as ia
+    dev = torch.device("cuda")
+    plan = getattr(ia, "plan", None)
+    name = torch.cuda.get_device_name(0)
+    for model in filter(None, args.models.split(",")):
+        shapes = chip_smoke.int8_attn_shapes(get_config(model), H, W)
+        for shape, per_forward in shapes.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                g = torch.Generator(device=dev).manual_seed(0)
+                q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype) * f
+                           for f in (1.0, 1.5, 2.0))
+                sc = [float(x.float().abs().max()) / 127 for x in (q, k, v)]
+                kern = lambda: ia.int8_attention(q, k, v, *sc)  # noqa: E731
+                if args.trace:
+                    emit({"probe": "fattn_trace", "model": model, "shape": list(shape),
+                          "dtype": dn, **_f_trace(kern)}, args.out)
+                    continue
+                res = ia.agreement(kern(), q, k, v, *sc)
+                rec = {"probe": "fattn", "label": args.label, "package": s2m2_torch.__file__,
+                       "model": model, "shape": list(shape), "dtype": dn,
+                       "per_forward": per_forward,
+                       "ms": time_ms(kern, n=10, warmup=3, reps=10),
+                       "device_ms": device_us(kern, n=10) / 1e3,
+                       "device_by_kernel_ms": _f_by_kernel(kern),
+                       "host_us": host_us(kern, n=100),
+                       "bound_ms": max(chip_smoke.bound("int8_attention", shape, dn)),
+                       "agreement_ok": res["ok"], "flipped_share": res["flipped_share"],
+                       "max_abs_err": res["max_abs_err"], "device": name}
+                if plan is not None:
+                    pl = plan(shape[0], shape[1], shape[1], shape[2], dtype)
+                    rec["plan"] = pl._asdict()
+                    rec["blocks_per_sm"] = _f_occupancy(pl, dtype)
+                emit(rec, args.out)
+    if plan is not None and not args.trace:
+        emit({"probe": "fattn_dispatch", "label": args.label, "device": name,
+              **_f_dispatch(ia, dev)}, args.out)
+    if not args.forward:
+        return
+    from s2m2_torch.runtime.engine import StereoEngine
+    _build.build_all()
+    rng = np.random.default_rng(0)
+    left, right = _pair(rng, 16)
+    eng = StereoEngine("S", precision="int8", int8_attn=True, seed=0)
+    eng.run(left, right)  # calibrates
+    ms = float(eng.run(left, right)[4])
+    _build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.forward_padded(left[None], right[None])
+        torch.cuda.synchronize()
+    busy, f_ms = _f_device_ms(prof)
+    emit({"probe": "fattn_forward", "label": args.label, "package": s2m2_torch.__file__,
+          "model": "S", "precision": "int8", "int8_attn": True, "request_ms": ms,
+          "device_busy_ms": busy if busy > 0 else "not measured",
+          "f_device_ms": f_ms if busy > 0 else "not measured",
+          "f_launches": _build.launch_counts["int8_attention"], "device": name}, args.out)
+
+
 def main():
     # the checkout this file lies in, after PYTHONPATH (which may name an
     # older checkout to measure instead)
@@ -920,6 +1116,14 @@ def main():
     sens = sub.add_parser("sensitivity")
     sens.add_argument("--seeds", type=int, default=4)
     sens.add_argument("--out")
+    fat = sub.add_parser("fattn")
+    fat.add_argument("--label", default="")
+    fat.add_argument("--models", default="S,XL")
+    fat.add_argument("--forward", action="store_true",
+                     help="also one traced S int8 int8_attn forward")
+    fat.add_argument("--trace", action="store_true",
+                     help="kernel F built with S2M2_F_TRACE: the cycles of its stages")
+    fat.add_argument("--out")
     cal = sub.add_parser("calib")
     cal.add_argument("--n", type=int, default=20)
     cal.add_argument("--out")
@@ -944,6 +1148,9 @@ def main():
     elif args.cmd == "ot":
         with torch.inference_mode():
             cmd_ot(args)
+    elif args.cmd == "fattn":
+        with torch.inference_mode():
+            cmd_fattn(args)
     elif args.cmd == "calib":
         cmd_calib(args)
     elif args.cmd == "sensitivity":

@@ -405,8 +405,9 @@ def test_serving_makes_no_function_call_on_card(cuda, monkeypatch):
 
 def _custom_op_cases(dev, dtype):
     """(launch counter, custom-op call, direct wrapper call) for each op of
-    ops/library.py at small shapes: A, B (packed), C, D, E's three packs
+    ops/library.py at small shapes: F, A, B (packed), C, D, E's three packs
     and its GEMM on rows, into NCHW, as an implicit 3x3 and a 1x1 conv."""
+    from s2m2_torch.ops import int8_attention as ia
     from s2m2_torch.ops import int8_gemm as ig
     from s2m2_torch.ops import library  # noqa: F401  (registers the ops)
     ops = torch.ops.s2m2_torch
@@ -431,7 +432,10 @@ def _custom_op_cases(dev, dtype):
     s_w = torch.rand((24,), generator=g, device=dev) * 1e-3
     bias = torch.randn((24,), generator=g, device=dev)
     conv3 = [3, 3, 1, 1, 1, 1]
+    fq, fk, fv = randn(4, 70, 24), randn(4, 100, 24), randn(4, 100, 24)
     return [
+        ("int8_attention", lambda: ops.int8_attention(fq, fk, fv, 0.02, 0.03, 0.03),
+         lambda: ia.int8_attention(fq, fk, fv, 0.02, 0.03, 0.03)),
         ("scanline_attention", lambda: ops.scanline_attention(q, k, v),
          lambda: fa.scanline_attention(q, k, v)),
         ("scanline_cross_attention", lambda: ops.scanline_cross_attention_packed(q, k, v),
@@ -511,25 +515,39 @@ def test_int8_attention_takes_the_plain_version_on_cpu_and_checks_inputs():
     assert m.device.type == "meta" and m.shape == q.shape
 
 
+def _f_inputs(dev, q_shape, nk, dtype):
+    """Seeded q (q_shape), k and v (B, nk, d) of `dtype` on `dev` and their
+    scales (each input's max |x| / 127)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, _, d = q_shape
+    q = torch.randn(q_shape, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, nk, d), generator=g, device=dev).to(dtype) * s for s in (1.5, 2.0))
+    return (q, k, v, *(float(x.float().abs().max()) / 127 for x in (q, k, v)))
+
+
+# kernel F's card cases: S's int8_attn shapes (N = 304, 152, 76 and the
+# 1216-token map; 76 on the fused route), XL's widest ((2, 304, 384): three
+# column chunks, three k tiles of Q and K; (8, 1216, 96)), a padded head
+# (24), keys fewer and more than queries (the fused route at Nk <= 128), a
+# head of 160 (its second chunk past DP) and of 512 (two stages, four
+# chunks)
+F_CARD_CASES = [((4, 304, 128), 304), ((8, 152, 64), 152), ((16, 76, 64), 76),
+                ((16, 1216, 32), 1216), ((3, 70, 24), 70), ((2, 40, 16), 100),
+                ((2, 100, 384), 65), ((2, 304, 384), 304), ((8, 1216, 96), 1216),
+                ((3, 130, 160), 200), ((1, 90, 512), 300)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("q_shape,nk", [((4, 304, 128), 304), ((8, 152, 64), 152),
-                                        ((16, 76, 64), 76), ((16, 1216, 32), 1216),
-                                        ((3, 70, 24), 70), ((2, 40, 16), 100),
-                                        ((2, 100, 384), 65)])
+@pytest.mark.parametrize("q_shape,nk", F_CARD_CASES)
 def test_int8_attention_kernel_matches_plain_on_card(cuda, q_shape, nk, dtype):
-    """Kernel F against its plain version: the S shapes of the int8_attn
-    route (N = 304, 152, 76 and the 1216-token map), a padded head (24), keys
-    fewer and more than queries, and a head of 384 (three column passes).
-    Each row within two quanta of its probabilities (2 s_v pmax_row: the
-    kernel's p = rint(127 e) may differ by one from rint(attn 127 / pmax)
-    where that lies within float32 rounding of a half) plus the output's
-    rounding, and few elements beyond the rounding (`agreement`)."""
+    """Kernel F against its plain version at `F_CARD_CASES`, each by its
+    plan (`ops.int8_attention.plan`: route, chunk width, stages). Each row
+    within two quanta of its probabilities (2 s_v pmax_row: the kernel's p
+    = rint(127 e) may differ by one from rint(attn 127 / pmax) where that
+    lies within float32 rounding of a half) plus the output's rounding,
+    and few elements beyond the rounding (`agreement`)."""
     from s2m2_torch.ops import int8_attention as ia
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, n, d = q_shape
-    q = torch.randn(q_shape, generator=g, device=cuda).to(dtype)
-    k, v = (torch.randn((b, nk, d), generator=g, device=cuda).to(dtype) * s for s in (1.5, 2.0))
-    s_q, s_k, s_v = (float(x.float().abs().max()) / 127 for x in (q, k, v))
+    q, k, v, s_q, s_k, s_v = _f_inputs(cuda, q_shape, nk, dtype)
     before = _build.launch_counts["int8_attention"]
     got = ia.int8_attention(q, k, v, s_q, s_k, s_v)
     torch.cuda.synchronize()
@@ -537,6 +555,34 @@ def test_int8_attention_kernel_matches_plain_on_card(cuda, q_shape, nk, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     res = ia.agreement(got, q, k, v, s_q, s_k, s_v)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_shape,nk", [((8, 1216, 32), 1216), ((4, 304, 128), 304),
+                                        ((16, 76, 64), 76)])
+def test_int8_attention_is_bitwise_repeatable_on_card(cuda, q_shape, nk, dtype):
+    """Two launches on the same inputs give the same bits, on both routes
+    (TMA at N = 1216 and 304, fused at N = 76)."""
+    from s2m2_torch.ops import int8_attention as ia
+    q, k, v, *sc = _f_inputs(cuda, q_shape, nk, dtype)
+    first = ia.int8_attention(q, k, v, *sc)
+    second = ia.int8_attention(q, k, v, *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_int8_attention_shape_with_no_plan_raises_on_card(cuda):
+    """A CUDA call with no plan raises, and nothing is launched: no queries
+    or keys, a head past MAX_HEAD_DIM."""
+    from s2m2_torch.ops import int8_attention as ia
+    before = _build.launch_counts["int8_attention"]
+    for q_shape, k_shape in (((2, 0, 16), (2, 30, 16)), ((2, 30, 16), (2, 0, 16)),
+                             ((1, 8, 520), (1, 8, 520))):
+        q = torch.zeros(q_shape, device=cuda, dtype=torch.bfloat16)
+        k = torch.zeros(k_shape, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            ia.int8_attention(q, k, k, 0.03, 0.03, 0.03)
+    assert _build.launch_counts["int8_attention"] == before
 
 
 def test_int8_attention_agreement_catches_a_wrong_scale():
