@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..runtime import trace
 from .cost_volume import make_cost_volume
 from .encoder import CNNEncoder
 from .feature_fusion import FeatureFusion
@@ -70,58 +71,67 @@ class S2M2(nn.Module):
 
         return_aux=True also returns {'disp_seq': [...]}, the per-iteration
         disparities at 1/4 resolution ((B, H/4, W/4, 1), in full-resolution
-        pixel units, the OT/global-refined init first)."""
+        pixel units, the OT/global-refined init first).
+
+        The five stages are spans of runtime/trace.py: forward.encode,
+        forward.transformer, forward.match, forward.refine and
+        forward.upsample."""
         cfg = self.cfg
-        img0_nor = normalize_img(img0.permute(0, 3, 1, 2))
-        img1_nor = normalize_img(img1.permute(0, 3, 1, 2))
+        with trace.span("forward.encode"):
+            img0_nor = normalize_img(img0.permute(0, 3, 1, 2))
+            img1_nor = normalize_img(img1.permute(0, 3, 1, 2))
 
-        feature_4x, feature_2x = self.cnn_backbone(torch.cat([img0_nor, img1_nor], 0))
-        feature0_2x = feature_2x.chunk(2, dim=0)[0]
+            feature_4x, feature_2x = self.cnn_backbone(torch.cat([img0_nor, img1_nor], 0))
+            feature0_2x = feature_2x.chunk(2, dim=0)[0]
 
-        py_4x, py_8x, py_16x, py_32x = self.feat_pyramid(feature_4x)
-        feature_tr_4x = self.transformer(py_4x, py_8x, py_16x, py_32x)
+            py_4x, py_8x, py_16x, py_32x = self.feat_pyramid(feature_4x)
+        with trace.span("forward.transformer"):
+            feature_tr_4x = self.transformer(py_4x, py_8x, py_16x, py_32x)
 
-        disp, conf, occ, cv = self.disp_init(
-            feature_tr_4x, ot_iter=cfg.ot_iter, use_positivity=cfg.use_positivity)
+        with trace.span("forward.match"):
+            disp, conf, occ, cv = self.disp_init(
+                feature_tr_4x, ot_iter=cfg.ot_iter, use_positivity=cfg.use_positivity)
 
-        feature0_tr_4x = feature_tr_4x.chunk(2, dim=0)[0]
-        feature0_py_4x = py_4x.chunk(2, dim=0)[0]
+            feature0_tr_4x = feature_tr_4x.chunk(2, dim=0)[0]
+            feature0_py_4x = py_4x.chunk(2, dim=0)[0]
 
-        disp = self.global_refiner(feature0_tr_4x, disp, conf)
-        if cfg.use_positivity:
-            disp = disp.clamp(min=0)
-
-        feature0_fusion_4x = self.feat_fusion_layer(feature0_tr_4x, feature0_py_4x)
-        ctx0 = self.ctx_feat(feature0_fusion_4x)
-        hidden = torch.tanh(ctx0)
-
-        w4 = feature0_fusion_4x.shape[3]
-        cv_state = make_cost_volume(cv, radius=cfg.radius)
-        coords_4x = torch.arange(w4, dtype=torch.float32, device=disp.device)
-
-        disp_seq = [disp * 4]
-        for _ in range(cfg.refine_iter):
-            hidden, disp, conf, occ = self.refiner(hidden, ctx0, disp, conf, occ,
-                                                   cv_state)
+            disp = self.global_refiner(feature0_tr_4x, disp, conf)
             if cfg.use_positivity:
                 disp = disp.clamp(min=0)
-            # geometric occlusion mask: the matched coordinate stays on-image
-            occ = occ * ((coords_4x - disp) >= 0)
-            disp_seq.append(disp * 4)
 
-        mask = self.upsample_mask_4x_refine(hidden, feature0_2x)
-        full = upsample4x(torch.cat([disp * 4, occ, conf], dim=1), mask)
-        filt = self.upsample_mask_1x(full[:, 0:1].to(img0_nor.dtype), img0_nor,
-                                     feature0_2x)
-        if cfg.output_upsample:
-            disp_up = 2 * upsample1x(full[:, 0:1], filt, True)
-            occ_up = upsample1x(full[:, 1:2], filt, True)
-            conf_up = upsample1x(full[:, 2:3], filt, True)
-        else:
-            out = upsample1x_multi(full, filt)
-            disp_up, occ_up, conf_up = out[:, 0:1], out[:, 1:2], out[:, 2:3]
+        with trace.span("forward.refine"):
+            feature0_fusion_4x = self.feat_fusion_layer(feature0_tr_4x, feature0_py_4x)
+            ctx0 = self.ctx_feat(feature0_fusion_4x)
+            hidden = torch.tanh(ctx0)
 
-        outs = (_nhwc(disp_up), _nhwc(occ_up), _nhwc(conf_up))
+            w4 = feature0_fusion_4x.shape[3]
+            cv_state = make_cost_volume(cv, radius=cfg.radius)
+            coords_4x = torch.arange(w4, dtype=torch.float32, device=disp.device)
+
+            disp_seq = [disp * 4]
+            for _ in range(cfg.refine_iter):
+                hidden, disp, conf, occ = self.refiner(hidden, ctx0, disp, conf, occ,
+                                                       cv_state)
+                if cfg.use_positivity:
+                    disp = disp.clamp(min=0)
+                # geometric occlusion mask: the matched coordinate stays on-image
+                occ = occ * ((coords_4x - disp) >= 0)
+                disp_seq.append(disp * 4)
+
+        with trace.span("forward.upsample"):
+            mask = self.upsample_mask_4x_refine(hidden, feature0_2x)
+            full = upsample4x(torch.cat([disp * 4, occ, conf], dim=1), mask)
+            filt = self.upsample_mask_1x(full[:, 0:1].to(img0_nor.dtype), img0_nor,
+                                         feature0_2x)
+            if cfg.output_upsample:
+                disp_up = 2 * upsample1x(full[:, 0:1], filt, True)
+                occ_up = upsample1x(full[:, 1:2], filt, True)
+                conf_up = upsample1x(full[:, 2:3], filt, True)
+            else:
+                out = upsample1x_multi(full, filt)
+                disp_up, occ_up, conf_up = out[:, 0:1], out[:, 1:2], out[:, 2:3]
+
+            outs = (_nhwc(disp_up), _nhwc(occ_up), _nhwc(conf_up))
         if return_aux:
             return (*outs, {"disp_seq": [_nhwc(d) for d in disp_seq]})
         return outs

@@ -3,8 +3,10 @@
 The library is compiled at first use with `g++ -O3 -fPIC -shared -std=c++17
 -pthread` (the compiler named by `$CXX` when it is set) into
 `build/s2m2_torch/libs2m2_preprocess.so` at the repository root, and
-recompiled when the source is newer than it. A failed build raises: there is
-no numpy fallback in here. The plain numpy versions are
+recompiled when the source is newer than it; each compile counts under
+`kernels.built`, and the first load is the span `kernels.load`
+(runtime/trace.py). A failed build raises: there is no numpy fallback in
+here. The plain numpy versions are
 `utils.image.remap_plain` and `utils.image.image_pad_plain`, which the tests
 hold this library against. Several processes may build at once (pytest-xdist
 workers): each takes an exclusive lock on a file beside the library,
@@ -24,6 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..runtime import trace
+
 SOURCE = Path(__file__).resolve().parent / "preprocess.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "s2m2_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
@@ -42,12 +46,18 @@ def build() -> float:
     build included). Raises RuntimeError when the compiler is missing or
     fails."""
     t0 = time.perf_counter()
+    _compile()
+    return time.perf_counter() - t0
+
+
+def _compile() -> bool:
+    """build()'s work; True when it compiled the library."""
     out = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "libs2m2_preprocess.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
-            return time.perf_counter() - t0
+            return False
         cxx = os.environ.get("CXX") or "g++"
         if shutil.which(cxx) is None:
             raise RuntimeError(f"C++ compiler {cxx!r} not found: the native preprocessing "
@@ -60,18 +70,21 @@ def build() -> float:
             if res.returncode != 0:
                 raise RuntimeError(f"{cxx} failed on {SOURCE.name}:\n{res.stdout}{res.stderr}")
             os.replace(tmp, out)
+            trace.count("kernels.built")
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return time.perf_counter() - t0
+    return True
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(library_path()))
+            with trace.span("kernels.load", library="s2m2_preprocess") as s:
+                s.set(built=_compile())
+                lib = ctypes.CDLL(str(library_path()))
+            trace.count("kernels.loaded")
             f32p = ctypes.POINTER(ctypes.c_float)
             u8p = ctypes.POINTER(ctypes.c_uint8)
             i32 = ctypes.c_int

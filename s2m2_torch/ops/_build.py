@@ -11,9 +11,13 @@ on machines with no `nvcc` and no card.
 
 Every kernel wrapper adds one to its entry of `launch_counts` each time it
 launches its kernel, and nowhere else, so a run can show which kernels its
-path went through. `entry` and `call` are the one way the wrappers reach a
-C entry point: the signature is set once, and a launch passes the raw
-current stream and switches the device only when it must.
+path went through; `runtime.trace.counters()` reports them as
+`launch.<kernel>`, beside `kernels.built` (each nvcc build) and
+`kernels.loaded`. `library`'s first load of each library, its build
+included, is the span `kernels.load`. `entry` and `call` are the one way
+the wrappers reach a C entry point: the signature is set once, and a
+launch passes the raw current stream and switches the device only when it
+must.
 
 `via_op` and `op` route a wrapper's call through its registered custom op
 (`ops/library.py`) while `torch.export` traces, and for meta tensors: the
@@ -33,6 +37,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..runtime import trace
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "s2m2_torch"
@@ -131,6 +137,7 @@ def _finish_build(name: str, started):
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{text}")
     os.replace(tmp, _lib_path(name))
+    trace.count("kernels.built")
 
 
 def build_all() -> float:
@@ -158,10 +165,13 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            started = _start_build(name)
-            if started is not None:
-                _finish_build(name, started)
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            with trace.span("kernels.load", library=name) as s:
+                started = _start_build(name)
+                s.set(built=started is not None)
+                if started is not None:
+                    _finish_build(name, started)
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            trace.count("kernels.loaded")
             _libs[name] = lib
         return lib
 

@@ -46,6 +46,7 @@ from ..parallel.distributed import max_over_ranks
 from ..parallel.mesh import all_reduce, band_rows, image_sharding, replicated
 from ..tools.convert import load_checkpoint, tolerant_merge
 from ..utils.image import image_crop, image_pad, read_images
+from . import trace
 
 # Subtrees whose weights stay float32 in a bf16 engine (fp32 islands, see
 # s2m2_tpu/runtime/engine.py): the three c->1 / c->2 out-conv heads always,
@@ -135,17 +136,18 @@ class StereoEngine:
 
         self.precision = Precision.fp32() if precision == "fp32" else Precision.bf16()
         self.compute_dtype = self.precision.compute_dtype
-        state = init_params(self.cfg, seed=seed)
-        if checkpoint:
-            state = tolerant_merge(state, load_checkpoint(checkpoint))
-        model = S2M2(self.cfg, fused_block=fused_block)
-        model.load_state_dict(state)
-        keep = (fp32_keep_paths(self.cfg)
-                if self.precision.param_dtype != torch.float32 else ())
-        cast_params(model, self.precision.param_dtype, keep)
-        self.model = model.to(self.device).eval()
-        if mesh is not None:
-            replicated(mesh)(self.model)
+        with trace.span("engine.init"):
+            state = init_params(self.cfg, seed=seed)
+            if checkpoint:
+                state = tolerant_merge(state, load_checkpoint(checkpoint))
+            model = S2M2(self.cfg, fused_block=fused_block)
+            model.load_state_dict(state)
+            keep = (fp32_keep_paths(self.cfg)
+                    if self.precision.param_dtype != torch.float32 else ())
+            cast_params(model, self.precision.param_dtype, keep)
+            self.model = model.to(self.device).eval()
+            if mesh is not None:
+                replicated(mesh)(self.model)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -158,9 +160,12 @@ class StereoEngine:
             dist.barrier(group=self.mesh.world_group)
 
     def _images(self, img0, img1):
-        return tuple(torch.as_tensor(np.asarray(i, np.float32)).to(self.device,
-                                                                 self.compute_dtype)
-                     for i in (img0, img1))
+        """Both frames on the device in the compute dtype; counts the host
+        bytes handed over under `bytes.h2d`."""
+        with trace.span("run.upload"):
+            host = [np.asarray(i, np.float32) for i in (img0, img1)]
+            trace.count("bytes.h2d", sum(a.nbytes for a in host))
+            return tuple(torch.as_tensor(a).to(self.device, self.compute_dtype) for a in host)
 
     def _forward(self, a, b):
         """The model on full device tensors, inside this engine's quant
@@ -310,34 +315,42 @@ class StereoEngine:
         (as s2m2_tpu/runtime/engine.py:325-373)."""
         if n_repeat < 1:
             raise ValueError(f"n_repeat must be >= 1, got {n_repeat}")
-        left = np.asarray(left, np.float32)
-        right = np.asarray(right, np.float32)
-        squeeze = left.ndim == 3
-        if squeeze:
-            left, right = left[None], right[None]
-        h, w = left.shape[1:3]
-        lp, rp = image_pad(left), image_pad(right)
-        if self.quantize and self.quant_scales is None:
-            self._auto_calibrate(lp, rp)  # set-up, outside the timed forward
-        if n_repeat == 1:
+        with trace.span("engine.run") as root:
+            with trace.span("run.prepare"):
+                left = np.asarray(left, np.float32)
+                right = np.asarray(right, np.float32)
+                squeeze = left.ndim == 3
+                if squeeze:
+                    left, right = left[None], right[None]
+                batch, h, w = left.shape[:3]
+                root.set(batch=batch, h=h, w=w)
+                lp, rp = image_pad(left), image_pad(right)
+                if self.quantize and self.quant_scales is None:
+                    self._auto_calibrate(lp, rp)  # set-up, outside the timed forward
             self._barrier()
-            t0 = time.perf_counter()
-            out = self.forward_padded(lp, rp)
-            self._sync()
-            runtime_ms = (time.perf_counter() - t0) * 1e3
-        else:
-            self._barrier()
-            out, runtime_ms = self._repeat_forward(lp, rp, n_repeat)
-        if self.mesh is not None:  # the slowest rank's time
-            runtime_ms = max_over_ranks(self.mesh, runtime_ms)
-        disp, occ, conf = (image_crop(o.cpu().numpy(), (h, w))[..., 0] for o in out)
-        m = 100
-        if h > 2 * m and w > 2 * m:
-            score = float(conf[:, m:-m, m:-m].mean())
-        else:
-            score = float(conf.mean())
-        if squeeze:
-            disp, occ, conf = disp[0], occ[0], conf[0]
+            with trace.span("run.forward"):
+                if n_repeat == 1:
+                    t0 = time.perf_counter()
+                    out = self.forward_padded(lp, rp)
+                    self._sync()
+                    runtime_ms = (time.perf_counter() - t0) * 1e3
+                else:
+                    out, runtime_ms = self._repeat_forward(lp, rp, n_repeat)
+                if self.mesh is not None:  # the slowest rank's time
+                    runtime_ms = max_over_ranks(self.mesh, runtime_ms)
+            with trace.span("run.download"):
+                maps = [o.cpu().numpy() for o in out]
+                trace.count("bytes.d2h", sum(a.nbytes for a in maps))
+            with trace.span("run.finish"):
+                disp, occ, conf = (image_crop(a, (h, w))[..., 0] for a in maps)
+                m = 100
+                if h > 2 * m and w > 2 * m:
+                    score = float(conf[:, m:-m, m:-m].mean())
+                else:
+                    score = float(conf.mean())
+                if squeeze:
+                    disp, occ, conf = disp[0], occ[0], conf[0]
+        trace.count("run.pairs", batch)
         return disp, occ, conf, score, runtime_ms
 
     @torch.inference_mode()
