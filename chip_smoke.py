@@ -40,6 +40,17 @@ non-zero:
    operations; then E's bf16-accumulator
    epilogue (int8_acc_bf16) within one ulp of its plain version at three
    S geometries (`E_ACC_BF16_CASES`), timed beside the int32 epilogue;
+   then G (`phase_conv`, the split-TF32 float32 conv of kernel
+   `csrc/conv_tf32x3.cu`) at every distinct shape it takes in an S and an
+   XL float32 1216x1024 forward (`conv_shapes`): its largest error and its
+   plain version's against a float64 conv of the same seeded operands,
+   each over the largest |output| (G's bound 1e-5: float32's rounding is
+   about 1e-6 there, one TF32 pass about 1e-3), and G timed in turns with
+   F.conv2d in float32 with TF32 off (cuDNN, the yardstick the port no
+   longer calls for these convs: cuDNN, G, G, cuDNN, CUDA events, median
+   of 10); its bound is the operations at 165 TFLOP/s (split TF32) or the
+   bytes at 3.35 TB/s; then one S float32 forward, whose G launches must
+   equal its routed convs;
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
    every tests/golden/s2m2_*.npz against the reference outputs, with the
    fused block off and then on (kernel D engaged); then int8 and int8r,
@@ -959,6 +970,114 @@ def phase_xl(pairs, medians):
     emit({"phase": "xl_fused_vs_unfused", "precision": "bf16",
           "mean_abs_disp_diff_px": float(np.mean(delta)), "per_request": delta})
     return launches, disps[("bf16", False)]
+
+
+def conv_shapes(cfg, h, w):
+    """Counter of the (b, c, h, w, n, kh, kw, ph, pw) shapes kernel G takes
+    (`ops.conv.plan`) in one batch-1 float32 forward at (h, w): the model
+    run on meta tensors with its Conv.forward recorded."""
+    import torch
+    from s2m2_torch.models import layers
+    from s2m2_torch.models.s2m2 import S2M2
+    from s2m2_torch.ops import conv
+    shapes = Counter()
+    forward = layers.Conv.forward
+
+    def record(mod, x, haloed=False):
+        b, c, hh, ww = x.shape
+        n, _, kh, kw = mod.weight.shape
+        shape = (b, c, hh, ww, n, kh, kw, *mod.pads())
+        if mod.stride == 1 and conv.plan(shape) is not None:
+            shapes[shape] += 1
+        return forward(mod, x, haloed)
+
+    layers.Conv.forward = record
+    try:
+        with torch.device("meta"), torch.no_grad():
+            S2M2(cfg)(torch.empty(1, h, w, 3), torch.empty(1, h, w, 3))
+    finally:
+        layers.Conv.forward = forward
+    return shapes
+
+
+def phase_conv():
+    """Kernel G at every shape an S and an XL float32 forward give it: its
+    error and its plain version's against float64, its time in turns with
+    cuDNN's float32 conv, the sums over a forward; then the launches of one
+    S float32 forward."""
+    import torch
+    import torch.nn.functional as F
+    from s2m2_torch.config import get_config
+    from s2m2_torch.ops import _build, conv
+    from s2m2_torch.runtime.engine import StereoEngine
+
+    bound_err = 1e-5
+    for model in ("S", "XL"):
+        shapes = conv_shapes(get_config(model), H, W)
+        tot = Counter()
+        for shape, per_forward in sorted(shapes.items()):
+            b, c, h, w, n, kh, kw, ph, pw = shape
+            g = torch.Generator(device="cuda").manual_seed(0)
+            x = torch.randn(b, c, h, w, device="cuda", generator=g)
+            wt = (torch.rand(n, c, kh, kw, device="cuda", generator=g) * 2 - 1) \
+                * (2.0 / (c * kh * kw)) ** 0.5
+            bias = torch.randn(n, device="cuda", generator=g) * 0.1
+            ws = conv.split_weight(wt)
+            y64 = F.conv2d(x.double(), wt.double(), bias.double(), padding=(ph, pw))
+            scale = y64.abs().max().item()
+            before = _build.launch_counts["conv_tf32x3"]
+            y = conv.conv_tf32x3(x, ws, bias, kh, kw, ph, pw)
+            yp = conv.conv_tf32x3_plain(x, ws, bias, kh, kw, ph, pw)
+            yc = F.conv2d(x, wt, bias, padding=(ph, pw))
+            torch.cuda.synchronize()
+            if _build.launch_counts["conv_tf32x3"] != before + 1:
+                raise AssertionError(f"G {shape}: not one launch")
+            errs = {k: (t.double() - y64).abs().max().item() / scale
+                    for k, t in (("err", y), ("plain_err", yp), ("cudnn_err", yc))}
+            del y64, yp, yc
+            if not errs["err"] <= bound_err:
+                raise AssertionError(f"G {shape}: error {errs['err']:.3g} over {bound_err}")
+
+            def g_call():
+                conv.conv_tf32x3(x, ws, bias, kh, kw, ph, pw)
+
+            def cudnn_call():
+                F.conv2d(x, wt, bias, padding=(ph, pw))
+
+            abba = [time_ms(f, n=10) for f in (cudnn_call, g_call, g_call, cudnn_call)]
+            ho, wo = conv.out_hw(h, w, kh, kw, ph, pw)
+            flops = 2 * b * ho * wo * n * c * kh * kw
+            nbytes = 4 * (b * c * h * w + n * c * kh * kw + b * n * ho * wo)
+            parts = (1e3 * nbytes / PEAK_BYTES, 1e3 * flops / SPLIT_TF32_FLOPS)
+            rec = {"ms": (abba[1] + abba[2]) / 2, "library_ms": (abba[0] + abba[3]) / 2,
+                   "plain_ms": time_ms(lambda: conv.conv_tf32x3_plain(x, ws, bias, kh, kw,
+                                                                      ph, pw), n=3),
+                   "bound_ms": max(parts)}
+            emit({"phase": "conv", "model": model, "shape": shape, "per_forward": per_forward,
+                  "plan": conv.plan(shape)._asdict(), **errs, "abba_ms": abba, **rec,
+                  "bound_parts_ms": dict(zip(("bytes", "operations"), parts)),
+                  "tflops": flops / rec["ms"] / 1e9})
+            for k, v in rec.items():
+                tot[k] += v * per_forward
+            tot["launches_per_forward"] += per_forward
+            del x, wt, ws, y
+            torch.cuda.empty_cache()
+        emit({"phase": "conv_forward", "model": model, **tot})
+    eng = StereoEngine("S", precision="fp32", seed=0)
+    rng = np.random.default_rng(0)
+    left = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    eng.run(left, left)
+    before = _build.launch_counts["conv_tf32x3"]
+    eng.run(left, np.roll(left, -8, axis=1))
+    launched = _build.launch_counts["conv_tf32x3"] - before
+    expected = sum(conv_shapes(get_config("S"), H, W).values())
+    emit({"phase": "conv_launches", "model": "S", "launches": launched,
+          "expected": expected})
+    if launched != expected:
+        raise AssertionError(f"G launched {launched} times in an S float32 forward, "
+                             f"expected {expected}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def phase_probe():
@@ -2012,7 +2131,8 @@ def wrap_cli(module, argv):
 def _run_cli(label, module, argv, per_forward, timeout=600):
     """Run one entry point through `wrap_cli` in a subprocess on the card;
     check its exit code, that it loaded none of FORBIDDEN_MODULES, and that
-    A, B and C launched `per_forward` times a forward (D and E never).
+    A, B and C launched `per_forward` times a forward (D and E never; G,
+    which takes a float32 forward's spatial convs, is counted a forward).
     Returns (its standard output, the wrapper's record)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     t0 = time.perf_counter()
@@ -2027,9 +2147,9 @@ def _run_cli(label, module, argv, per_forward, timeout=600):
                              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}") from None
     counts = rec["launches"]
     n = rec["forwards"]
-    per = {k: counts[k] / n if n else None for k in ABC}
+    per = {k: counts[k] / n if n else None for k in (*ABC, "conv_tf32x3")}
     bad = [k for k in ABC if counts[k] != per_forward[k] * n or n == 0]
-    bad += [k for k, v in counts.items() if k not in ABC and v]
+    bad += [k for k, v in counts.items() if k not in ABC and k != "conv_tf32x3" and v]
     if rec["rc"] != 0 or rec["forbidden_modules"] or bad:
         raise AssertionError(f"{label}: rc {rec['rc']}, loaded {rec['forbidden_modules']}, "
                              f"launches {counts} over {n} forwards (expected "
@@ -2602,7 +2722,8 @@ def rank_main(argv):
             rec["unsharded_median_ms"] = float(np.median(r_ms))
             rec["unsharded_launches_per_forward"] = r_per
             watched = ABC + (("fused_basic_attn_block",) if fused else ()) + \
-                (E_KERNELS if precision == "int8" else ())
+                (E_KERNELS if precision == "int8" else ()) + \
+                (("conv_tf32x3",) if precision == "fp32" else ())
             if on_card and (any(per[k] != r_per[k] or per[k] <= 0 for k in watched)
                             or any(per[k] for k in per if k not in watched)):
                 problems.append("launches per forward")
@@ -2790,6 +2911,7 @@ def main():
                                  "int8_attention": int8_attn_shapes(get_config("XL"), H, W)})
         phase_e_acc_bf16()
         phase_probe()
+        phase_conv()
     phase_golden(fused_block=False)
     phase_golden(fused_block=True)
     phase_golden_int8()

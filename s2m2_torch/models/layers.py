@@ -20,7 +20,15 @@ weights (I, O, kh, kw), linear weights (out, in). Numerics follow
   with row padding 0; bilinear x2 and the 3x3 unfold one row each side,
   replicated only at the image's edges; GroupNorm sums its statistics over
   the bands. Everything else is row-local. With no band context the code
-  is the one-device code.
+  is the one-device code;
+- on the float path a Conv whose input is float32 on the card, with no
+  gradient wanted, a spatial kernel and stride 1 runs on kernel G
+  (`ops.conv.route`: split TF32 on the tensor cores, float32 accuracy)
+  where `ops.conv.plan` takes the shape; every other conv is F.conv2d.
+  The split weight G reads is made on first use and kept on the module
+  until the weight changes (`Conv.g_weight`). Each float32 CUDA conv adds
+  its operations to the counter `conv.own_flops` (G) or
+  `conv.library_flops` (cuDNN).
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import quant
+from ..ops import conv as conv_g
 from ..parallel import band
+from ..runtime import trace
 
 
 def _operands(x, weight, bias):
@@ -259,6 +269,7 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = padding
         self.site_gate = None
+        self._g_weight = None  # ((data_ptr, version), split weight) for kernel G
 
     def pads(self):
         """(ph, pw): the padding, k // 2 per side unless given."""
@@ -284,8 +295,35 @@ class Conv(nn.Module):
         w = self.weight
         qw = quant.prequant_of(self)
         if qw is not None:  # a prequantized weight on the float path: dequantize
-            w = quant.dequantize(qw, w[0].numel(), x.dtype).reshape(w.shape)
-        return conv2d(x, w, self.bias, self.stride, (ph, pw))
+            w = quant.dequantize(qw, w.shape[1:].numel(), x.dtype).reshape(w.shape)
+            own = False
+        else:
+            own = conv_g.route(x, w, self.stride, (ph, pw)) is not None
+        if own:
+            kh, kw = w.shape[2:]
+            y = conv_g.conv_tf32x3(x, self.g_weight(), self.bias, kh, kw, ph, pw)
+        else:
+            y = conv2d(x, w, self.bias, self.stride, (ph, pw))
+        if y.is_cuda and y.dtype == torch.float32:
+            trace.count("conv.own_flops" if own else "conv.library_flops",
+                        conv_g.conv_flops(y, w))
+        return y
+
+    def g_weight(self):
+        """The weight split for kernel G (`ops.conv.split_weight`), made on
+        first use and kept until the weight's storage or version changes
+        (an optimizer step, a load_state_dict, any in-place update). While
+        torch.export traces, it is made in the traced graph instead; a
+        weight made in inference mode has no version counter, so it is
+        split on every call."""
+        w = self.weight
+        if torch.compiler.is_exporting() or w.is_inference():
+            return conv_g.split_weight(w)
+        key = (w.data_ptr(), w._version)
+        if self._g_weight is None or self._g_weight[0] != key:
+            with torch.no_grad():
+                self._g_weight = (key, conv_g.split_weight(w.detach()))
+        return self._g_weight[1]
 
 
 class ConvT(nn.Module):

@@ -48,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"scanline_attention": 0, "scanline_cross_attention": 0,
                  "fused_correlation_ot": 0, "fused_basic_attn_block": 0,
                  "int8_quantize_pack": 0, "int8_gemm": 0, "bf16_gemm": 0,
-                 "int8_attention": 0}
+                 "int8_attention": 0, "conv_tf32x3": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -78,8 +78,9 @@ def _generated_headers(name: str) -> dict:
     """{file name: text} of the headers csrc/<name>.cu includes from the
     build directory: kernels A and B compile the instance table of
     ops/flash_attention.py, kernel E's GEMM that of ops/int8_gemm.py,
-    kernel D that of ops/fused_block.py and kernel F the wgmma wrappers of
-    ops/int8_attention.py, so each table is kept in one place."""
+    kernel D that of ops/fused_block.py, kernel F the wgmma wrappers of
+    ops/int8_attention.py and kernel G the table of ops/conv.py, so each
+    table is kept in one place."""
     if name == "scanline_attention":
         from .flash_attention import instances_header
         return {"scanline_attention_instances.h": instances_header()}
@@ -92,6 +93,9 @@ def _generated_headers(name: str) -> dict:
     if name == "int8_attention":
         from .int8_attention import instances_header
         return {"int8_attention_instances.h": instances_header()}
+    if name == "conv_tf32x3":
+        from .conv import instances_header
+        return {"conv_tf32x3_instances.h": instances_header()}
     return {}
 
 

@@ -19,7 +19,10 @@ the hand-written kernels:
   w_scale, s_x, bias, out_dtype, conv, nchw, acc_bf16)`: kernel E's two
   launches;
 - `int8_attention(q, k, v, s_q, s_k, s_v)`: kernel F, the int8 attention
-  core of the int8_attn opt-in.
+  core of the int8_attn opt-in;
+- `conv_tf32x3(x, w_split, bias, kh, kw, ph, pw)`: kernel G, a float32
+  spatial conv by split TF32 (the weight split by `conv.split_weight`,
+  which an exported program computes from the parameter in its graph).
 
 Per device: the "cuda" kernel of each op is the wrapper's direct launch
 (the same `_build.call`, counted in `_build.launch_counts`, raising on a
@@ -54,6 +57,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import Tensor
 
+from . import conv
 from . import flash_attention as fa
 from . import fused_block as fb
 from . import int8_attention as ia
@@ -258,3 +262,28 @@ def _(q, k, v, s_q, s_k, s_v):
 def _(q, k, v, s_q, s_k, s_v):
     ia.check(q, k, v)
     return v.new_empty(q.shape)
+
+
+# ---------------------------------------------------------------- G
+
+
+@torch.library.custom_op(f"{NAMESPACE}::conv_tf32x3", mutates_args=())
+def conv_tf32x3(x: Tensor, w_split: Tensor, bias: Optional[Tensor], kh: int, kw: int,
+                ph: int, pw: int) -> Tensor:
+    raise _unsupported("conv_tf32x3", x)
+
+
+@conv_tf32x3.register_kernel("cuda")
+def _(x, w_split, bias, kh, kw, ph, pw):
+    return conv._kernel(_dense(x), _dense(w_split), bias, kh, kw, ph, pw)
+
+
+@conv_tf32x3.register_kernel("cpu")
+def _(x, w_split, bias, kh, kw, ph, pw):
+    return conv.conv_tf32x3_plain(x, w_split, bias, kh, kw, ph, pw)
+
+
+@conv_tf32x3.register_fake
+def _(x, w_split, bias, kh, kw, ph, pw):
+    conv._check(x, w_split, bias, kh, kw, ph, pw)
+    return x.new_empty(conv.out_shape(x, w_split, kh, kw, ph, pw))

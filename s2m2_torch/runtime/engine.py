@@ -5,6 +5,12 @@ and for matmuls (`torch.backends.cudnn.allow_tf32 = False`,
 `torch.set_float32_matmul_precision("highest")`), process-wide. cuDNN's
 default TF32 keeps about three decimal digits, which breaks the golden
 tolerances of the fp32 engine and the fp32 islands of the bf16 engine.
+On the card the fp32 engine's spatial stride-1 convolutions (3x3, 3x1,
+1x3; `ops.conv.route`) run on kernel G as split TF32: each operand split
+into two TF32 parts, three tensor-core products, float32 sums, a float32
+result (within float32's rounding of a float64 conv). The 1x1 and strided
+convolutions, the fp32 islands of a bf16 engine, and every conv of a
+training step stay on cuDNN in float32, TF32 off.
 
 Precisions: "fp32", "bf16", and the int8 engines "int8", "int8a" (only
 128-aligned GEMMs quantized) and "int8r" (int8 plus the int8 residual
