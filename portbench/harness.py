@@ -9,12 +9,29 @@ configuration is `portbench/configs/<config>.json`, the traffic
 `portbench/metrics/<metric>.py` with `read(record)`, which returns a number
 or None when the run has nothing for it to read.
 
-The window is a closed loop with one client: each call of
-`StereoEngine.run` waits for the previous one, on host uint8 frames from a
-pool made from the seed, cycled so that no call repeats the one before.
+What depends on the model is the configuration's `architecture`'s, in
+`portbench/archs/<architecture>.py`: `build_engine(cell, device,
+precision=None)`, the program's object whose `run(left, right)` the window
+calls; `unpack(out)`, run's result as ({map name: (B, H, W) array}, score
+or None, run's own forward ms); `sane(maps, score, shape)`, the check of
+every call in the window; `reference(cfg)`, the plain float32 module, whose
+forward takes a pair of float32 (B, H, W, 3) frames; `layout(module)`, each
+parameter's initialisation bound (`weights.py`);
+`reference_request(model, left, right, device)`, the reference's outputs
+of a request of uint8 frames; `numbers(maps, reference_out)`, the compared
+numbers, each the worst over the request's pairs; `FAULTS`, faults planted
+in the program (`faults.py`); and optionally `CONTROLS`, lower precisions
+in the program's place (`readings.py`), `attention_bound_ms(cfg, h, w,
+batch, dtype_name)`, and `FAMILIES`, kernel families tried before
+`yardstick.FAMILIES`.
+
+The window is a closed loop with one client: each call of the engine's
+`run` waits for the previous one, on host uint8 frames from a pool made
+from the seed, cycled so that no call repeats the one before.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -28,9 +45,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import compare, scenes, trace, weights, yardstick
-from .reference import engine as ref_engine
-from .reference import model as ref_model
+from . import scenes, trace, weights, yardstick
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "s2m2_tpu")
@@ -46,6 +61,11 @@ class Cell:
     limits: dict       # {number: limit}
     metrics: dict      # {metric name: unit} this run reports
     root: Path
+
+    @property
+    def arch(self):
+        """The module `portbench/archs/<architecture>.py` of the configuration."""
+        return architecture(self.root, self.config["architecture"])
 
     @property
     def model(self):
@@ -69,14 +89,30 @@ def load_cell(name: str, trace_run: bool, root: Path = ROOT) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json; there are {sorted(cells)}")
     w = cells[name]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    config = _read_json(root / conf["file"])
+    archs = root / "portbench" / "archs"
+    if "architecture" not in config:
+        raise ValueError(f"{conf['file']} names no \"architecture\": the name of its file "
+                         f"<architecture>.py in {archs}")
+    if not (archs / f"{config['architecture']}.py").exists():
+        raise FileNotFoundError(f"{conf['file']} names the architecture "
+                                f"{config['architecture']!r}, which has no file in {archs}")
     metrics = {}
     for m in spec["per_layer" if trace_run else "end_to_end"]:
         if name in m.get("workloads", [name]):
             metrics[m["name"]] = m["unit"]
-    return Cell(name=name, chips=w["chips"], config=_read_json(root / conf["file"]),
+    return Cell(name=name, chips=w["chips"], config=config,
                 traffic=_read_json(root / "portbench" / "traffic" / f"{w['traffic']}.json"),
                 limits=_read_json(root / "portbench" / "limits" / f"{name}.json"),
                 metrics=metrics, root=root)
+
+
+def _load(path: Path, name: str):
+    """The module of the Python file at `path`, loaded under `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(root: Path, metric: str):
@@ -86,16 +122,19 @@ def reader(root: Path, metric: str):
     path = root / "portbench" / "metrics" / f"{metric}.py"
     if not path.exists():
         path = root / "portbench" / "metrics" / f"{metric.split('.', 1)[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "portbench_metric_" + metric.replace(".", "_")).read
+
+
+@functools.lru_cache(maxsize=None)
+def architecture(root: Path, name: str):
+    """The module `portbench/archs/<name>.py` of the checkout at `root`,
+    loaded once, so that a fault planted in it is the one its engine runs."""
+    return _load(root / "portbench" / "archs" / f"{name}.py", f"portbench_arch_{name}")
 
 
 @dataclass
 class Call:
-    host_ms: float      # host clock around StereoEngine.run
+    host_ms: float      # host clock around the engine's run
     runtime_ms: float   # run's own forward time
     pairs: int
     traced: bool
@@ -120,11 +159,15 @@ class Record:
 
     def flops_per_pair(self):
         b, h, w = self.cell.shape
-        return yardstick.model_flops(self.cell.model, b, h, w) / b
+        return yardstick.model_flops(self.cell.arch.reference, self.cell.model, b, h, w) / b
 
     def attention_bound_ms_per_pair(self):
+        """None where the architecture counts no attention kernels."""
+        bound = getattr(self.cell.arch, "attention_bound_ms", None)
+        if bound is None:
+            return None
         b, h, w = self.cell.shape
-        return yardstick.attention_bound_ms(self.cell.model, h, w, b, self.dtype_name) / b
+        return bound(self.cell.model, h, w, b, self.dtype_name) / b
 
     def untraced(self):
         return [c for c in self.calls if not c.traced]
@@ -143,13 +186,16 @@ class Record:
         """Device ms a pair of the kernel families in the profiled slice."""
         if self.slice is None or not self.slice.device_ops:
             return None
-        return self.slice.family_ms(*families) / self.slice.pairs
+        table = getattr(self.cell.arch, "FAMILIES", ()) + yardstick.FAMILIES
+        return self.slice.family_ms(*families, table=table) / self.slice.pairs
 
     def attn_roofline(self):
-        """% of the A and B calls' least time over the attention family's
-        device time in the profiled slice."""
+        """% of the attention calls' least time (the architecture's
+        `attention_bound_ms`) over the attention family's device time in the
+        profiled slice."""
         ms = self.family_ms_per_pair("attention")
-        return 100.0 * self.attention_bound_ms_per_pair() / ms if ms else None
+        bound = self.attention_bound_ms_per_pair() if ms else None
+        return 100.0 * bound / ms if bound is not None else None
 
     def idle_share(self):
         if self.slice is None or not self.slice.device_ops:
@@ -195,10 +241,9 @@ def host_line(before, after) -> str:
 
 
 def build_engine(cell: Cell, device, precision=None):
-    from s2m2_torch.config import ModelConfig
-    from s2m2_torch.runtime.engine import StereoEngine
-    return StereoEngine(ModelConfig(**cell.model), precision=precision or cell.config["precision"],
-                        device=device, fused_block=cell.config["fused_block"])
+    """The program's engine of the cell (its architecture's `build_engine`);
+    `precision` replaces the configuration's."""
+    return cell.arch.build_engine(cell, device, precision)
 
 
 @torch.no_grad()
@@ -216,7 +261,7 @@ def set_weights(engine, w: dict):
 
 
 def cell_weights(cell: Cell, seed: int, device):
-    return weights.make(cell.model, seed, device, cell.config["weight_gain"],
+    return weights.make(cell.arch, cell.model, seed, device, cell.config["weight_gain"],
                         getattr(torch, DTYPE_NAMES[cell.config["precision"]]))
 
 
@@ -235,14 +280,6 @@ def call_inputs(cell: Cell, pool, i):
     return idx, np.stack([pool[j][0] for j in idx]), np.stack([pool[j][1] for j in idx])
 
 
-def _batched(out):
-    """run's (disp, occ, conf, score, ms) with (B, H, W) maps."""
-    disp, occ, conf, score = out[:4]
-    if disp.ndim == 2:
-        disp, occ, conf = disp[None], occ[None], conf[None]
-    return disp, occ, conf, score
-
-
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -250,9 +287,11 @@ def _sync(device):
 
 def drive(engine, cell: Cell, pool, seconds: float, seed: int, trace_run: bool, device):
     """The measured window. Returns (calls, window seconds, the calls kept
-    for the comparison as [(pool indices, outputs)], the pairs of calls that
-    failed `compare.sane`, the profiler of the traced slice or None)."""
+    for the comparison as [(pool indices, maps)], the pairs of calls that
+    failed the architecture's `sane`, the profiler of the traced slice or
+    None)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    unpack, sane = cell.arch.unpack, cell.arch.sane
     t = cell.traffic
     keep = t["compare_calls"]
     rng = np.random.default_rng([seed, 1])
@@ -277,25 +316,28 @@ def drive(engine, cell: Cell, pool, seconds: float, seed: int, trace_run: bool, 
         if traced and i == last:
             _sync(device)
             prof.stop()
-        calls.append(Call(ms, out[4], len(idx), traced))
-        res = _batched(out)
-        if not compare.sane(res, cell.shape):
+        maps, score, runtime_ms = unpack(out)
+        calls.append(Call(ms, runtime_ms, len(idx), traced))
+        if not sane(maps, score, cell.shape):
             insane += len(idx)
         # a uniform sample of `keep` calls of the window, drawn from the seed
         if i < keep:
-            sample.append((idx, res))
+            sample.append((idx, maps))
         else:
             j = int(rng.integers(0, i + 1))
             if j < keep:
-                sample[j] = (idx, res)
+                sample[j] = (idx, maps)
         i += 1
     return calls, time.perf_counter() - t0, sample, insane, prof
 
 
 def reference_model(cell: Cell, seed: int, device):
-    ref_model.configure_numerics()
+    """The architecture's plain reference on `device` with the cell's
+    weights, run in float32 with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with torch.device(device):
-        model = ref_model.S2M2(cell.model).eval()
+        model = cell.arch.reference(cell.model).eval()
     w = cell_weights(cell, seed, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -307,12 +349,12 @@ def judge(cell: Cell, sample: list, pool, model, device):
     """Each sampled call's numbers against the reference's outputs for its
     pairs; returns (the worst of each number, pairs that failed a limit)."""
     worst, failed, cache = {}, 0, {}
-    for idx, out in sample:
+    for idx, maps in sample:
         if idx not in cache:
             left = np.stack([pool[j][0] for j in idx])
             right = np.stack([pool[j][1] for j in idx])
-            cache[idx] = ref_engine.run(model, left, right, device)
-        nums = compare.request_numbers(out, cache[idx])
+            cache[idx] = cell.arch.reference_request(model, left, right, device)
+        nums = cell.arch.numbers(maps, cache[idx])
         for k, v in nums.items():
             worst[k] = max(worst.get(k, v), v)
         if not all(nums[k] <= lim for k, lim in cell.limits.items()):  # NaN fails too

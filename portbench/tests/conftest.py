@@ -1,6 +1,6 @@
 """A tiny cell of the benchmark for CPU tests: its own BENCHMARK.json,
 configuration, traffic and limits files in a temporary checkout root, and
-the real metric readers copied beside them."""
+the real metric readers and architectures copied beside them."""
 import json
 import shutil
 from pathlib import Path
@@ -23,7 +23,9 @@ def write_root(root: Path, limits: dict, batch: int = 1, model=None, traffic=Non
     pb = root / "portbench"
     for sub in ("configs", "traffic", "limits"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(PORTBENCH / "metrics", pb / "metrics", dirs_exist_ok=True)
+    for sub in ("metrics", "archs"):
+        shutil.copytree(PORTBENCH / sub, pb / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     real = json.loads((PORTBENCH.parent / "BENCHMARK.json").read_text())
     spec = {"configs": [{"name": "tiny", "file": "portbench/configs/tiny.json"}],
             "workloads": [{"name": "tiny.stream", "config": "tiny", "traffic": "stream",
@@ -34,8 +36,8 @@ def write_root(root: Path, limits: dict, batch: int = 1, model=None, traffic=Non
                           for m in real["per_layer"]]}
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     (pb / "configs" / "tiny.json").write_text(json.dumps(
-        {"model": dict(TINY_MODEL, **(model or {})), "precision": "fp32", "fused_block": False,
-         "weight_gain": 2 ** 0.5}))
+        {"architecture": "s2m2", "model": dict(TINY_MODEL, **(model or {})), "precision": "fp32",
+         "fused_block": False, "weight_gain": 2 ** 0.5}))
     traffic = dict(TINY_TRAFFIC, batch=batch, pool=4 * batch, **(traffic or {}))
     (pb / "traffic" / "stream.json").write_text(json.dumps(traffic))
     (pb / "limits" / "tiny.stream.json").write_text(json.dumps(limits))

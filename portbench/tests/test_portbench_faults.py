@@ -3,13 +3,14 @@ broken, and when a lower precision stands in for the program.
 
 A whole run of a small cell on the CPU (S's widths at 256x320, float32 with
 TF32 off as the cells; the harness's look for a card is skipped), with one
-fault of `faults.py` planted in the program underneath: the refiner's step
+fault of S2M2's `FAULTS` (`archs/s2m2.py`) planted in the program underneath: the refiner's step
 returning its state unchanged, the disparity one pixel off where the model
 produces it, half of a batch left out. Then the control, the reference on
 TF32 operands in the program's place, and the program's own bf16 path. A
 cell holds one card, so no exchange between cards can be left out. The
 small cell compares exactly the numbers the committed cells compare, with
 limits set from its own readings as theirs are (PERF.md)."""
+import contextlib
 import json
 from pathlib import Path
 
@@ -30,10 +31,13 @@ SMALL_LIMITS = {"disp_clear_median_px": 5.3e-5, "occ_median": 2.0e-6, "conf_medi
 SEED = 2**31 + 41
 
 
-def run(tmp_path, batch=1):
+def run(tmp_path, batch=1, fault=None):
+    """A run of the small cell, with the fault `fault` of its architecture
+    planted in the program."""
     root = write_root(tmp_path, SMALL_LIMITS, batch, **SMALL)
     cell = harness.load_cell("tiny.stream", False, root)
-    return harness.run_cell(cell, SEED, 1.0, False, device="cpu", log=lambda _: None)
+    with faults.plant(cell, fault) if fault else contextlib.nullcontext():
+        return harness.run_cell(cell, SEED, 1.0, False, device="cpu", log=lambda _: None)
 
 
 def test_the_small_cell_compares_the_committed_cells_numbers():
@@ -48,20 +52,17 @@ def test_sound_run_is_correct(tmp_path, batch):
 
 
 def test_refiner_returning_its_state_unchanged_is_caught(tmp_path):
-    with faults.plant("refiner_unchanged"):
-        res = run(tmp_path)
+    res = run(tmp_path, fault="refiner_unchanged")
     assert not res["correct"] and res["failed"] > 0
 
 
 def test_disparity_altered_where_it_is_produced_is_caught(tmp_path):
-    with faults.plant("disp_plus1"):
-        res = run(tmp_path)
+    res = run(tmp_path, fault="disp_plus1")
     assert not res["correct"] and res["failed"] > 0
 
 
 def test_half_of_a_batch_left_out_is_caught(tmp_path):
-    with faults.plant("half_batch"):
-        res = run(tmp_path, batch=2)
+    res = run(tmp_path, batch=2, fault="half_batch")
     assert not res["correct"] and res["failed"] > 0
 
 
@@ -69,7 +70,7 @@ def test_lower_precision_in_the_programs_place_is_caught(tmp_path, monkeypatch):
     """The control: the reference in the program's place with every conv
     and linear on TF32 operands."""
     monkeypatch.setattr(harness, "build_engine", lambda cell, device, precision=None:
-                        readings.ReferenceInPlace(cell, SEED, device))
+                        readings.control(cell, "ref_tf32", SEED, device))
     monkeypatch.setattr(harness, "set_weights", lambda engine, w: None)
     res = run(tmp_path)
     assert not res["correct"] and res["failed"] > 0

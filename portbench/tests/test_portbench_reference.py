@@ -7,10 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.reference import engine as ref_engine
+from portbench import harness
 from portbench.reference import model as ref
 
-GOLDEN = Path(__file__).resolve().parents[2] / "tests" / "golden"
+ROOT = Path(__file__).resolve().parents[2]
+GOLDEN = ROOT / "tests" / "golden"
+ARCH = harness.architecture(ROOT, "s2m2")
 
 
 def from_jax_layout(model, flat):
@@ -60,14 +62,14 @@ def test_reference_request_takes_uint8_frames():
     model, imgs, refs = load_fixture("s2m2_c32_ntr1.npz")
     left = np.clip(np.rint(imgs[0]), 0, 255).astype(np.uint8)
     right = np.clip(np.rint(imgs[1]), 0, 255).astype(np.uint8)
-    disp, occ, conf, score, match = ref_engine.run(model, np.concatenate([left, left]),
-                                                   np.concatenate([right, right]), "cpu")
+    disp, occ, conf, score, match = ARCH.reference_request(
+        model, np.concatenate([left, left]), np.concatenate([right, right]), "cpu")
     assert disp.shape == (2, *left.shape[1:3]) == occ.shape == conf.shape == match.shape
     np.testing.assert_array_equal(disp[0], disp[1])
     assert 0.0 <= match.min() and match.max() <= 1.0 and match.std() > 0
     assert score == pytest.approx(float(conf.mean()), rel=1e-6)  # 64x96: no interior
     with pytest.raises(ValueError):
-        ref_engine.run(model, left[:, :40], right[:, :40], "cpu")
+        ARCH.reference_request(model, left[:, :40], right[:, :40], "cpu")
 
 
 def test_clear_match_takes_the_least_of_each_neighbourhood():
@@ -75,7 +77,7 @@ def test_clear_match_takes_the_least_of_each_neighbourhood():
     1/4 resolution, repeated over its 4x4 output pixels."""
     m = torch.full((1, 1, 4, 5), 0.9)
     m[0, 0, 0, 0] = 0.1
-    out = ref_engine.clear_match(m, (16, 20))
+    out = ARCH.clear_match(m, (16, 20))
     assert out.shape == (1, 16, 20)
     assert torch.all(out[0, :8, :8] == 0.1) and torch.all(out[0, 8:, :] == 0.9)
     assert torch.all(out[0, :, 8:] == 0.9)

@@ -68,10 +68,11 @@ class Slice:
     def busy_s(self):
         return sum(e - s for s, e in self.busy) / 1e6
 
-    def family_ms(self, *families):
-        """Device ms of the operations whose family is one of `families`."""
+    def family_ms(self, *families, table=yardstick.FAMILIES):
+        """Device ms of the operations whose family in `table` is one of
+        `families`."""
         return sum(dur for name, _, dur in self.device_ops
-                   if yardstick.family(name) in families) / 1e3
+                   if yardstick.family(name, table) in families) / 1e3
 
     def gaps(self):
         """(start, end) of each stretch of the slice with nothing on the device."""
