@@ -41,16 +41,17 @@ non-zero:
    epilogue (int8_acc_bf16) within one ulp of its plain version at three
    S geometries (`E_ACC_BF16_CASES`), timed beside the int32 epilogue;
    then G (`phase_conv`, the split-TF32 float32 conv of kernel
-   `csrc/conv_tf32x3.cu`) at every distinct shape it takes in an S and an
-   XL float32 1216x1024 forward (`conv_shapes`): its largest error and its
+   `csrc/conv_tf32x3.cu`) at every distinct shape it takes in an S, an XL
+   and a RAFT-Stereo (the published defaults, 32 iterations) float32
+   1216x1024 forward (`conv_shapes`): its largest error and its
    plain version's against a float64 conv of the same seeded operands,
    each over the largest |output| (G's bound 1e-5: float32's rounding is
    about 1e-6 there, one TF32 pass about 1e-3), and G timed in turns with
    F.conv2d in float32 with TF32 off (cuDNN, the yardstick the port no
    longer calls for these convs: cuDNN, G, G, cuDNN, CUDA events, median
    of 10); its bound is the operations at 165 TFLOP/s (split TF32) or the
-   bytes at 3.35 TB/s; then one S float32 forward, whose G launches must
-   equal its routed convs;
+   bytes at 3.35 TB/s; then one S and one RAFT-Stereo float32 forward,
+   whose G launches must each equal the forward's routed convs;
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
    every tests/golden/s2m2_*.npz against the reference outputs, with the
    fused block off and then on (kernel D engaged); then int8 and int8r,
@@ -972,12 +973,21 @@ def phase_xl(pairs, medians):
     return launches, disps[("bf16", False)]
 
 
+def conv_models():
+    """(label, configuration) of each float32 forward `phase_conv` holds G
+    to: S2M2 S and XL, RAFT-Stereo at the published defaults."""
+    from s2m2_torch.config import RaftStereoConfig, get_config
+    return (("S", get_config("S")), ("XL", get_config("XL")), ("RAFT", RaftStereoConfig()))
+
+
 def conv_shapes(cfg, h, w):
     """Counter of the (b, c, h, w, n, kh, kw, ph, pw) shapes kernel G takes
-    (`ops.conv.plan`) in one batch-1 float32 forward at (h, w): the model
-    run on meta tensors with its Conv.forward recorded."""
+    (`ops.conv.plan`) in one batch-1 float32 forward at (h, w) of the model
+    `cfg` names (S2M2 or RAFT-Stereo): the model run on meta tensors with
+    its Conv.forward recorded."""
     import torch
     from s2m2_torch.models import layers
+    from s2m2_torch.models.raft_stereo import RAFTStereo
     from s2m2_torch.models.s2m2 import S2M2
     from s2m2_torch.ops import conv
     shapes = Counter()
@@ -994,26 +1004,27 @@ def conv_shapes(cfg, h, w):
     layers.Conv.forward = record
     try:
         with torch.device("meta"), torch.no_grad():
-            S2M2(cfg)(torch.empty(1, h, w, 3), torch.empty(1, h, w, 3))
+            model = {"s2m2": S2M2, "raft_stereo": RAFTStereo}[cfg.architecture](cfg)
+            model(torch.empty(1, h, w, 3), torch.empty(1, h, w, 3))
     finally:
         layers.Conv.forward = forward
     return shapes
 
 
 def phase_conv():
-    """Kernel G at every shape an S and an XL float32 forward give it: its
-    error and its plain version's against float64, its time in turns with
-    cuDNN's float32 conv, the sums over a forward; then the launches of one
-    S float32 forward."""
+    """Kernel G at every shape an S, an XL and a RAFT-Stereo float32
+    forward give it: its error and its plain version's against float64, its
+    time in turns with cuDNN's float32 conv, the sums over a forward; then
+    the launches of one S and one RAFT-Stereo float32 forward."""
     import torch
     import torch.nn.functional as F
-    from s2m2_torch.config import get_config
     from s2m2_torch.ops import _build, conv
     from s2m2_torch.runtime.engine import StereoEngine
 
     bound_err = 1e-5
-    for model in ("S", "XL"):
-        shapes = conv_shapes(get_config(model), H, W)
+    models = dict(conv_models())
+    for model, cfg in models.items():
+        shapes = conv_shapes(cfg, H, W)
         tot = Counter()
         for shape, per_forward in sorted(shapes.items()):
             b, c, h, w, n, kh, kw, ph, pw = shape
@@ -1063,21 +1074,22 @@ def phase_conv():
             del x, wt, ws, y
             torch.cuda.empty_cache()
         emit({"phase": "conv_forward", "model": model, **tot})
-    eng = StereoEngine("S", precision="fp32", seed=0)
     rng = np.random.default_rng(0)
     left = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
-    eng.run(left, left)
-    before = _build.launch_counts["conv_tf32x3"]
-    eng.run(left, np.roll(left, -8, axis=1))
-    launched = _build.launch_counts["conv_tf32x3"] - before
-    expected = sum(conv_shapes(get_config("S"), H, W).values())
-    emit({"phase": "conv_launches", "model": "S", "launches": launched,
-          "expected": expected})
-    if launched != expected:
-        raise AssertionError(f"G launched {launched} times in an S float32 forward, "
-                             f"expected {expected}")
-    del eng
-    torch.cuda.empty_cache()
+    for model in ("S", "RAFT"):
+        eng = StereoEngine(models[model], precision="fp32", seed=0)
+        eng.run(left, left)
+        before = _build.launch_counts["conv_tf32x3"]
+        eng.run(left, np.roll(left, -8, axis=1))
+        launched = _build.launch_counts["conv_tf32x3"] - before
+        expected = sum(conv_shapes(models[model], H, W).values())
+        emit({"phase": "conv_launches", "model": model, "launches": launched,
+              "expected": expected})
+        if launched != expected:
+            raise AssertionError(f"G launched {launched} times in a {model} float32 "
+                                 f"forward, expected {expected}")
+        del eng
+        torch.cuda.empty_cache()
 
 
 def phase_probe():

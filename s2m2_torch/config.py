@@ -1,5 +1,9 @@
-"""Model configuration and variant registry (reference:
+"""Model configurations and the S2M2 variant registry (reference:
 src/s2m2/core/utils/model_utils.py:12-17 and src/s2m2/core/model/s2m2.py:14-28).
+
+Two architectures run through `runtime.engine.StereoEngine`: S2M2
+(`ModelConfig`) and RAFT-Stereo (`RaftStereoConfig`); each configuration
+names its own in the class attribute `architecture` (not a dataclass field).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ class ModelConfig:
     radius:           cost-volume lookup radius (9 taps = 2*radius+1).
     pe_dim:           channel width of the sinc relative positional encoding.
     """
+
+    architecture = "s2m2"  # a class attribute, not a field: no config sets it
 
     feature_channels: int
     num_transformer: int
@@ -64,6 +70,40 @@ def get_config(model_type: str, *, use_positivity: bool = True, refine_iter: int
                        use_positivity=use_positivity,
                        refine_iter=refine_iter,
                        output_upsample=output_upsample)
+
+
+@dataclasses.dataclass(frozen=True)
+class RaftStereoConfig:
+    """Hyper-parameters of RAFT-Stereo (arXiv:2109.07547), under the names
+    of the published code's arguments (github.com/princeton-vl/RAFT-Stereo,
+    train_stereo.py); the defaults are its own, with `iters` its evaluation
+    default `valid_iters`.
+
+    hidden_dims:   GRU hidden widths at 1/4f, 1/2f, 1/f of the input,
+                   f = 2**n_downsample (128, 128, 128).
+    n_downsample:  the feature and context maps are at 1/2**n_downsample.
+    corr_levels:   levels of the 1-D correlation pyramid.
+    corr_radius:   taps either side of the match in each level (2r + 1).
+    iters:         GRU iterations a forward.
+
+    The port runs the published defaults of the other arguments and has no
+    field for them: three GRU levels, the "reg" correlation, batch norm in
+    the context encoder, no shared backbone, no slow-fast GRU, no mixed
+    precision."""
+
+    architecture = "raft_stereo"  # not a field: no config sets it
+
+    hidden_dims: tuple = (128, 128, 128)
+    n_downsample: int = 2
+    corr_levels: int = 4
+    corr_radius: int = 4
+    iters: int = 32
+
+    def __post_init__(self):
+        object.__setattr__(self, "hidden_dims", tuple(self.hidden_dims))
+        if len(self.hidden_dims) != 3 or self.iters < 1 or self.corr_levels < 1:
+            raise ValueError(f"RaftStereoConfig: hidden_dims {self.hidden_dims} must give "
+                             "3 widths; iters, corr_levels >= 1")
 
 
 def checkpoint_name(cfg: ModelConfig) -> str:

@@ -1,17 +1,21 @@
-"""Seeded random weights for S2M2.
+"""Seeded random weights for S2M2 and RAFT-Stereo.
 
-The draws are made in the JAX package's layouts and order
+S2M2's draws are made in the JAX package's layouts and order
 (`s2m2_tpu/models/init.py`), from one `np.random.default_rng(seed)`, so a
 seed gives bit-identical weights in both packages; `tools.convert.from_jax`
-then turns them into a torch state dict. Bounds approximate torch defaults
-(uniform +-1/sqrt(fan_in)); norms start at weight 1, bias 0.
+then turns them into a torch state dict. RAFT-Stereo, which the JAX package
+does not have, draws in its own parameter order (`init_raft_stereo`).
+Bounds approximate torch defaults (uniform +-1/sqrt(fan_in)); norms start
+at weight 1, bias 0.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import ModelConfig
 from ..tools.convert import flatten, from_jax
+from .layers import Conv
 
 
 class _Rng:
@@ -212,3 +216,20 @@ def init_params_jax_layout(cfg: ModelConfig, seed: int = 0) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
     """Seeded weights as a torch state dict (torch layouts, float32, CPU)."""
     return from_jax(init_params_jax_layout(cfg, seed))
+
+
+@torch.no_grad()
+def init_raft_stereo(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Fill a `models.raft_stereo.RAFTStereo` in place from one
+    `np.random.default_rng(seed)`: each conv's weight, then its bias,
+    uniform in +-1/sqrt(fan_in), in the order of `modules()`; batch norms
+    at weight 1, bias 0 and running statistics 0 and 1."""
+    rng = _Rng(seed)
+    for m in model.modules():
+        if isinstance(m, Conv):
+            bound = 1.0 / np.sqrt(m.weight[0].numel())
+            for p in m.parameters(recurse=False):
+                p.copy_(torch.from_numpy(rng.uniform(tuple(p.shape), bound)))
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_parameters()
+    return model

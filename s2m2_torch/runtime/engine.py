@@ -33,6 +33,14 @@ forward under `parallel.band.sharded`, gathers, and returns the full maps on
 every rank. An int8 engine calibrates on the full padded frames, unsharded,
 on every rank, and checks that every rank's scales are the same. Without a
 mesh nothing changes.
+
+Architectures: the configuration names the model the engine builds
+(`config.py`): a `ModelConfig` (or a variant name) S2M2, a
+`RaftStereoConfig` RAFT-Stereo (`models/raft_stereo.py`). RAFT-Stereo runs
+in float32 only, on one device: another precision, a mesh, the fused
+block or `confidence_score` raise ValueError. It makes no occlusion, confidence or score, and
+`run` returns None in their places; padding, crop, timing and the
+counters are S2M2's.
 """
 from __future__ import annotations
 
@@ -43,9 +51,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import ModelConfig, Precision, get_config
+from ..config import ModelConfig, Precision, RaftStereoConfig, get_config
 from ..models import quant
-from ..models.init import init_params
+from ..models.init import init_params, init_raft_stereo
+from ..models.raft_stereo import RAFTStereo
 from ..models.s2m2 import S2M2
 from ..parallel import band
 from ..parallel.distributed import max_over_ranks
@@ -84,6 +93,21 @@ def cast_params(model: torch.nn.Module, dtype, keep_fp32=()):
 PRECISIONS = ("fp32", "bf16", "int8", "int8a", "int8r")
 
 
+def _s2m2(cfg, seed, fused_block):
+    return S2M2(cfg, fused_block=fused_block), init_params(cfg, seed=seed)
+
+
+def _raft_stereo(cfg, seed, fused_block):
+    model = init_raft_stereo(RAFTStereo(cfg), seed)
+    return model, model.state_dict()
+
+
+# The model each architecture of config.py names: (configuration, seed,
+# fused_block) -> (the model, its seeded state dict). Each model's forward
+# returns (disp, occ, conf), None for a map it does not make.
+MODELS = {"s2m2": _s2m2, "raft_stereo": _raft_stereo}
+
+
 class StereoEngine:
     """Owns the model on one device and runs padded inference.
 
@@ -107,13 +131,20 @@ class StereoEngine:
                  refine_iter: int = 3, seed: int = 0, device=None,
                  fused_block: bool = False, mesh=None, int8_attn: bool = False,
                  int8_acc_bf16: bool = False):
-        if isinstance(model_type_or_cfg, ModelConfig):
+        if isinstance(model_type_or_cfg, (ModelConfig, RaftStereoConfig)):
             self.cfg = model_type_or_cfg
         else:
             self.cfg = get_config(model_type_or_cfg, use_positivity=use_positivity,
                                   refine_iter=refine_iter)
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        # S2M2 alone has occlusion and confidence, other precisions than
+        # float32, meshes and the fused block
+        self.s2m2 = self.cfg.architecture == "s2m2"
+        if not self.s2m2 and (precision != "fp32" or mesh is not None or fused_block):
+            raise ValueError(f"RAFT-Stereo runs in float32 on one device: precision 'fp32', "
+                             f"no mesh, no fused block (got precision {precision!r}, mesh "
+                             f"{mesh!r}, fused_block {fused_block!r})")
         self.precision_name = precision
         self.quantize = precision.startswith("int8")
         if (int8_attn or int8_acc_bf16) and not self.quantize:
@@ -143,10 +174,10 @@ class StereoEngine:
         self.precision = Precision.fp32() if precision == "fp32" else Precision.bf16()
         self.compute_dtype = self.precision.compute_dtype
         with trace.span("engine.init"):
-            state = init_params(self.cfg, seed=seed)
-            if checkpoint:
-                state = tolerant_merge(state, load_checkpoint(checkpoint))
-            model = S2M2(self.cfg, fused_block=fused_block)
+            model, state = MODELS[self.cfg.architecture](self.cfg, seed, fused_block)
+            if checkpoint:  # RAFT-Stereo's published checkpoints are DataParallel's
+                state = tolerant_merge(state, {k.removeprefix("module."): v for k, v in
+                                               load_checkpoint(checkpoint).items()})
             model.load_state_dict(state)
             keep = (fp32_keep_paths(self.cfg)
                     if self.precision.param_dtype != torch.float32 else ())
@@ -300,11 +331,12 @@ class StereoEngine:
     @torch.inference_mode()
     def forward_padded(self, img0, img1):
         """Forward on already padded (B, H, W, 3) arrays; returns float32
-        (disp, occ, conf) tensors of shape (B, H, W, 1) on the device. An
-        uncalibrated int8 engine calibrates on these frames first."""
+        (disp, occ, conf) tensors of shape (B, H, W, 1) on the device, None
+        for a map the model does not make. An uncalibrated int8 engine
+        calibrates on these frames first."""
         if self.quantize and self.quant_scales is None:
             self._auto_calibrate(img0, img1)
-        return tuple(o.float() for o in self._forward(*self._images(img0, img1)))
+        return _float(self._forward(*self._images(img0, img1)))
 
     def run(self, left, right, n_repeat: int = 1):
         """Full pipeline on HWC (or BHWC) images in [0, 255].
@@ -312,9 +344,10 @@ class StereoEngine:
         Returns (disp, occ, conf, avg_conf_score, runtime_ms): numpy (H, W)
         (or (B, H, W)) maps at input resolution; avg_conf_score is the mean
         confidence over a 100 px-margin interior (the reference's
-        self-calibration objective, model_utils.py:93-94). With n_repeat = 1,
-        runtime_ms is the host time of the forward, ending in a device
-        synchronize. With n_repeat > 1, one untimed warm forward runs first,
+        self-calibration objective, model_utils.py:93-94); None for occ,
+        conf and the score of a model without them (RAFT-Stereo). With
+        n_repeat = 1, runtime_ms is the host time of the forward, ending in
+        a device synchronize. With n_repeat > 1, one untimed warm forward runs first,
         then n_repeat forwards on the same padded pair, already on the
         device; runtime_ms is their mean, timed by CUDA events on the card
         (by the host clock on the CPU), and the maps are the last forward's
@@ -345,17 +378,20 @@ class StereoEngine:
                 if self.mesh is not None:  # the slowest rank's time
                     runtime_ms = max_over_ranks(self.mesh, runtime_ms)
             with trace.span("run.download"):
-                maps = [o.cpu().numpy() for o in out]
-                trace.count("bytes.d2h", sum(a.nbytes for a in maps))
+                maps = [None if o is None else o.cpu().numpy() for o in out]
+                trace.count("bytes.d2h", sum(a.nbytes for a in maps if a is not None))
             with trace.span("run.finish"):
-                disp, occ, conf = (image_crop(a, (h, w))[..., 0] for a in maps)
+                disp, occ, conf = (None if a is None else image_crop(a, (h, w))[..., 0]
+                                   for a in maps)
                 m = 100
-                if h > 2 * m and w > 2 * m:
+                if conf is None:
+                    score = None
+                elif h > 2 * m and w > 2 * m:
                     score = float(conf[:, m:-m, m:-m].mean())
                 else:
                     score = float(conf.mean())
                 if squeeze:
-                    disp, occ, conf = disp[0], occ[0], conf[0]
+                    disp, occ, conf = (None if a is None else a[0] for a in (disp, occ, conf))
         trace.count("run.pairs", batch)
         return disp, occ, conf, score, runtime_ms
 
@@ -379,10 +415,13 @@ class StereoEngine:
             for _ in range(n_repeat):
                 out = self._forward(a, b)
             ms = (time.perf_counter() - t0) * 1e3 / n_repeat
-        return tuple(o.float() for o in out), ms
+        return _float(out), ms
 
     def confidence_score(self, left, right) -> float:
         """The self-calibration objective (reference: model_utils.py:98-107)."""
+        if not self.s2m2:
+            raise ValueError(f"confidence_score(): {type(self.model).__name__} makes no "
+                             "confidence")
         return self.run(left, right)[3]
 
     @torch.inference_mode()
@@ -417,3 +456,8 @@ class StereoEngine:
         return dict(seconds_per_frame=dt / batch, fps=batch / dt,
                     height=height, width=width, batch=batch,
                     device=torch.cuda.get_device_name(self.device), **out)
+
+
+def _float(maps):
+    """The forward's maps in float32; a map the model does not make stays None."""
+    return tuple(None if o is None else o.float() for o in maps)

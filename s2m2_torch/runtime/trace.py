@@ -4,7 +4,9 @@ Spans time the layer boundaries of the program (README, "Tracing"):
 `engine.run` and its phases `run.prepare`, `run.forward` (with
 `run.upload` and the model's stages `forward.encode`,
 `forward.transformer`, `forward.match`, `forward.refine`,
-`forward.upsample` inside it), `run.download` and `run.finish`;
+`forward.upsample` inside it; RAFT-Stereo's `forward.encode`,
+`forward.correlation`, `forward.update`, `forward.upsample`),
+`run.download` and `run.finish`;
 `engine.init`; `kernels.load`, the first load of each kernel library,
 its build included.
 
@@ -24,8 +26,10 @@ Counters are always on, in one table for the process: `bytes.h2d` and
 `bytes.d2h` (host bytes `StereoEngine.run` hands to and takes from the
 device), `run.pairs` (stereo pairs `run` served), `kernels.built` (each
 nvcc or g++ build in this process), `kernels.loaded` (each kernel library
-loaded), `trace.dropped`, and `launch.<kernel>`, which `counters()` reads
-from `ops/_build.py`'s `launch_counts`.
+loaded), `trace.dropped`, `corr.volume_bytes` (bytes of the correlation
+pyramid levels built), `raft.iters` (RAFT-Stereo's iterations run, times
+the pairs), and `launch.<kernel>`, which `counters()` reads from
+`ops/_build.py`'s `launch_counts`.
 """
 from __future__ import annotations
 
