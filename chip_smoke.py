@@ -43,15 +43,17 @@ non-zero:
    then G (`phase_conv`, the split-TF32 float32 conv of kernel
    `csrc/conv_tf32x3.cu`) at every distinct shape it takes in an S, an XL
    and a RAFT-Stereo (the published defaults, 32 iterations) float32
-   1216x1024 forward (`conv_shapes`): its largest error and its
+   1216x1024 forward (`conv_shapes`; the 1x1 ones on G's flat path, kept
+   apart in the records): its largest error and its
    plain version's against a float64 conv of the same seeded operands,
    each over the largest |output| (G's bound 1e-5: float32's rounding is
    about 1e-6 there, one TF32 pass about 1e-3), and G timed in turns with
    F.conv2d in float32 with TF32 off (cuDNN, the yardstick the port no
    longer calls for these convs: cuDNN, G, G, cuDNN, CUDA events, median
    of 10); its bound is the operations at 165 TFLOP/s (split TF32) or the
-   bytes at 3.35 TB/s; then one S and one RAFT-Stereo float32 forward,
-   whose G launches must each equal the forward's routed convs;
+   bytes at 3.35 TB/s; then one S, one XL and one RAFT-Stereo float32
+   forward, whose G launches (`conv_tf32x3`, `conv1x1_tf32x3`) must each
+   equal the forward's routed convs;
 4. golden: the port on the card, kernels engaged, float32 with TF32 off, on
    every tests/golden/s2m2_*.npz against the reference outputs, with the
    fused block off and then on (kernel D engaged); then int8 and int8r,
@@ -1014,8 +1016,10 @@ def conv_shapes(cfg, h, w):
 def phase_conv():
     """Kernel G at every shape an S, an XL and a RAFT-Stereo float32
     forward give it: its error and its plain version's against float64, its
-    time in turns with cuDNN's float32 conv, the sums over a forward; then
-    the launches of one S and one RAFT-Stereo float32 forward."""
+    time in turns with cuDNN's float32 conv, the sums over a forward, the
+    spatial shapes (`conv`, `conv_forward`) apart from the 1x1 ones of G's
+    flat path (`conv1x1`, `conv1x1_forward`); then the launches of one S,
+    one XL and one RAFT-Stereo float32 forward under each launch count."""
     import torch
     import torch.nn.functional as F
     from s2m2_torch.ops import _build, conv
@@ -1025,9 +1029,10 @@ def phase_conv():
     models = dict(conv_models())
     for model, cfg in models.items():
         shapes = conv_shapes(cfg, H, W)
-        tot = Counter()
+        tot = {"conv_tf32x3": Counter(), "conv1x1_tf32x3": Counter()}
         for shape, per_forward in sorted(shapes.items()):
             b, c, h, w, n, kh, kw, ph, pw = shape
+            key = _conv_launch_key(shape)
             g = torch.Generator(device="cuda").manual_seed(0)
             x = torch.randn(b, c, h, w, device="cuda", generator=g)
             wt = (torch.rand(n, c, kh, kw, device="cuda", generator=g) * 2 - 1) \
@@ -1036,13 +1041,13 @@ def phase_conv():
             ws = conv.split_weight(wt)
             y64 = F.conv2d(x.double(), wt.double(), bias.double(), padding=(ph, pw))
             scale = y64.abs().max().item()
-            before = _build.launch_counts["conv_tf32x3"]
+            before = _build.launch_counts[key]
             y = conv.conv_tf32x3(x, ws, bias, kh, kw, ph, pw)
             yp = conv.conv_tf32x3_plain(x, ws, bias, kh, kw, ph, pw)
             yc = F.conv2d(x, wt, bias, padding=(ph, pw))
             torch.cuda.synchronize()
-            if _build.launch_counts["conv_tf32x3"] != before + 1:
-                raise AssertionError(f"G {shape}: not one launch")
+            if _build.launch_counts[key] != before + 1:
+                raise AssertionError(f"G {shape}: not one launch of {key}")
             errs = {k: (t.double() - y64).abs().max().item() / scale
                     for k, t in (("err", y), ("plain_err", yp), ("cudnn_err", yc))}
             del y64, yp, yc
@@ -1064,32 +1069,42 @@ def phase_conv():
                    "plain_ms": time_ms(lambda: conv.conv_tf32x3_plain(x, ws, bias, kh, kw,
                                                                       ph, pw), n=3),
                    "bound_ms": max(parts)}
-            emit({"phase": "conv", "model": model, "shape": shape, "per_forward": per_forward,
+            emit({"phase": "conv" if key == "conv_tf32x3" else "conv1x1", "model": model,
+                  "shape": shape, "per_forward": per_forward,
                   "plan": conv.plan(shape)._asdict(), **errs, "abba_ms": abba, **rec,
                   "bound_parts_ms": dict(zip(("bytes", "operations"), parts)),
                   "tflops": flops / rec["ms"] / 1e9})
             for k, v in rec.items():
-                tot[k] += v * per_forward
-            tot["launches_per_forward"] += per_forward
+                tot[key][k] += v * per_forward
+            tot[key]["launches_per_forward"] += per_forward
             del x, wt, ws, y
             torch.cuda.empty_cache()
-        emit({"phase": "conv_forward", "model": model, **tot})
+        emit({"phase": "conv_forward", "model": model, **tot["conv_tf32x3"]})
+        emit({"phase": "conv1x1_forward", "model": model, **tot["conv1x1_tf32x3"]})
     rng = np.random.default_rng(0)
     left = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
-    for model in ("S", "RAFT"):
+    for model in ("S", "XL", "RAFT"):
         eng = StereoEngine(models[model], precision="fp32", seed=0)
         eng.run(left, left)
-        before = _build.launch_counts["conv_tf32x3"]
+        before = dict(_build.launch_counts)
         eng.run(left, np.roll(left, -8, axis=1))
-        launched = _build.launch_counts["conv_tf32x3"] - before
-        expected = sum(conv_shapes(models[model], H, W).values())
-        emit({"phase": "conv_launches", "model": model, "launches": launched,
-              "expected": expected})
-        if launched != expected:
-            raise AssertionError(f"G launched {launched} times in a {model} float32 "
-                                 f"forward, expected {expected}")
+        expected = Counter()
+        for shape, per_forward in conv_shapes(models[model], H, W).items():
+            expected[_conv_launch_key(shape)] += per_forward
+        for key in ("conv_tf32x3", "conv1x1_tf32x3"):
+            launched = _build.launch_counts[key] - before[key]
+            emit({"phase": "conv_launches", "model": model, "kernel": key,
+                  "launches": launched, "expected": expected[key]})
+            if launched != expected[key]:
+                raise AssertionError(f"G launched {launched} times under {key} in a {model} "
+                                     f"float32 forward, expected {expected[key]}")
         del eng
         torch.cuda.empty_cache()
+
+
+def _conv_launch_key(shape):
+    """The launch count a conv of `shape` goes to: G's flat path for 1x1."""
+    return "conv1x1_tf32x3" if shape[5] == shape[6] == 1 else "conv_tf32x3"
 
 
 def phase_probe():
@@ -2105,6 +2120,7 @@ def phase_export(shapes, pairs, xl_int8_scales):
 CONVERGENCE_STEPS = 300
 CONVERGENCE_EPE, CONVERGENCE_BAD2 = 0.891 + 0.15, 0.15
 ABC = ("scanline_attention", "scanline_cross_attention", "fused_correlation_ot")
+G_KERNELS = ("conv_tf32x3", "conv1x1_tf32x3")  # G's spatial and flat launch counts
 FORBIDDEN_MODULES = ("cv2", "PIL", "jax", "s2m2_tpu")
 
 
@@ -2144,7 +2160,7 @@ def _run_cli(label, module, argv, per_forward, timeout=600):
     """Run one entry point through `wrap_cli` in a subprocess on the card;
     check its exit code, that it loaded none of FORBIDDEN_MODULES, and that
     A, B and C launched `per_forward` times a forward (D and E never; G,
-    which takes a float32 forward's spatial convs, is counted a forward).
+    which takes a float32 forward's stride-1 convs, is counted a forward).
     Returns (its standard output, the wrapper's record)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     t0 = time.perf_counter()
@@ -2159,9 +2175,9 @@ def _run_cli(label, module, argv, per_forward, timeout=600):
                              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}") from None
     counts = rec["launches"]
     n = rec["forwards"]
-    per = {k: counts[k] / n if n else None for k in (*ABC, "conv_tf32x3")}
+    per = {k: counts[k] / n if n else None for k in (*ABC, *G_KERNELS)}
     bad = [k for k in ABC if counts[k] != per_forward[k] * n or n == 0]
-    bad += [k for k, v in counts.items() if k not in ABC and k != "conv_tf32x3" and v]
+    bad += [k for k, v in counts.items() if k not in ABC and k not in G_KERNELS and v]
     if rec["rc"] != 0 or rec["forbidden_modules"] or bad:
         raise AssertionError(f"{label}: rc {rec['rc']}, loaded {rec['forbidden_modules']}, "
                              f"launches {counts} over {n} forwards (expected "
@@ -2735,7 +2751,7 @@ def rank_main(argv):
             rec["unsharded_launches_per_forward"] = r_per
             watched = ABC + (("fused_basic_attn_block",) if fused else ()) + \
                 (E_KERNELS if precision == "int8" else ()) + \
-                (("conv_tf32x3",) if precision == "fp32" else ())
+                (G_KERNELS if precision == "fp32" else ())
             if on_card and (any(per[k] != r_per[k] or per[k] <= 0 for k in watched)
                             or any(per[k] for k in per if k not in watched)):
                 problems.append("launches per forward")

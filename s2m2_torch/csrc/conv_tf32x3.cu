@@ -1,4 +1,4 @@
-// Float32 spatial convolution on the tensor cores by split TF32, for Hopper
+// Float32 convolution on the tensor cores by split TF32, for Hopper
 // (sm_90a): kernel G.
 //
 // Replaces no TPU kernel: the JAX package leaves its convolutions to XLA,
@@ -11,8 +11,9 @@
 // product is three TF32 products, small * big, big * small, big * big, in
 // that order into float32 sums (small * small, below float32's rounding,
 // is dropped). G takes every float32 inference convolution with
-// a spatial kernel of at most 3 x 3, stride 1, dilation 1 and groups 1
-// that `ops/conv.py plan` accepts; everything else stays on cuDNN.
+// a kernel of at most 3 x 3, stride 1, dilation 1 and groups 1 that
+// `ops/conv.py plan` accepts, the 1x1 ones on its flat path (below);
+// everything else stays on cuDNN.
 //
 // What bounds it on the H100: 2 B Ho Wo N C kh kw operations against one
 // read of the input and the weights and one write of the output. At the
@@ -59,6 +60,32 @@
 // The instances (MT, BN, SB) and their wgmma wrappers come from the table
 // `_INSTANCES` of ops/conv.py (`instances_header`, written by _build.py
 // into conv_tf32x3_instances.h); `plan` picks one per shape.
+//
+// The flat path (`conv1x1_tf32x3_kernel`, entry `s2m2_conv1x1_tf32x3`):
+// G's instances for the float32 1x1 stride-1 convs, which ran on cuDNN's
+// FFMA kernels (`sm80_xmma_fprop_implicit_gemm_f32f32...`) at about half
+// the 67 TFLOP/s FFMA peak, the largest block of an XL forward left off the
+// tensor cores; the JAX package leaves them to XLA as it does every conv.
+// A 1x1 conv is a GEMM per image: M = output pixels taken flat over H W
+// (contiguous in NCHW), N = output channels, K = input channels. What
+// bounds it: 2 B H W N C operations against one read of the input and the
+// weights and one write of the output; at XL's shapes (C 384 to 1536) that
+// is 100 to 400 operations a byte, so the operations, at split TF32's 165
+// TFLOP/s; only at C = 128 (about 64 a byte) would the bytes come near.
+// Its design is G's block, warpgroups, weight ring, k tiles and epilogue,
+// with other tiles: a tile is 128 MT flat pixels (which may cross image
+// rows; a 64 x 76 map would leave a third of G's 16-wide column tiles
+// empty) by BN channels, each consumer warpgroup's 64 MT pixels one TMA
+// box of (64 MT + 8) pixels x 32 channels of the (HW, C, B) view (no halo;
+// the 8 extra pixels keep a channel plane 8 banks from the next), loaded
+// with the weight stage of the same chunk on one barrier. The tail of H W
+// and the channels past C are zero-filled by TMA. The epilogue differs: a
+// tile's output is written into shared memory and stored by one TMA store
+// (which writes nothing past H W or N) while the next tile runs; storing
+// from the accumulators, as G's spatial tiles do, took 13% of the time at
+// C = 384 (2,048 32-byte sectors a tile through the SM's store path; H100,
+// at the cost of a fourth ring stage). Its instances are `_FLAT_INSTANCES`
+// of ops/conv.py (S2M2_CONV1X1_INSTANCES).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,8 +97,8 @@
 
 #include "hopper.cuh"  // mbarrier, TMA, wgmma helpers; encoder()
 
-// The instance table of ops/conv.py and the TF32 wgmma wrappers
-// WgmmaTF32<BN>::mma(acc, a, b_desc, scale_d) of its N tiles.
+// The instance tables of ops/conv.py (spatial and flat) and the TF32 wgmma
+// wrappers WgmmaTF32<BN>::mma(acc, a, b_desc, scale_d) of their N tiles.
 #include "conv_tf32x3_instances.h"
 
 namespace {
@@ -123,10 +150,13 @@ struct Geo {
 // every k tile and added with a rounded FADD, each partial sum takes 12
 // truncations of a sum of 32 channels, and the result keeps float32's
 // error.
-template <int MT, int BN, int S>
+//
+// PLANE: floats from one channel of the box to the next; MSTEP: floats from
+// one 64-row accumulator's first pixel to the next one's (4 box rows in G's
+// spatial tiles, 64 pixels in the flat ones).
+template <int MT, int BN, int S, int PLANE, int MSTEP>
 __device__ __forceinline__ void k_tile(float (&acc)[MT][BN / 2], const float* hal,
                                        uint64_t db, uint64_t ds) {
-  using G = Geo<MT, BN, 1>;
   uint32_t ab[MT][S][4], as[MT][S][4];
   float part[MT][BN / 2];
 #pragma unroll
@@ -134,11 +164,11 @@ __device__ __forceinline__ void k_tile(float (&acc)[MT][BN / 2], const float* ha
 #pragma unroll
     for (int ks = 0; ks < S; ++ks) {
       // rows g and g + 8 (pixels), columns tig and tig + 4 (channels)
-      const float* p = hal + mt * 4 * G::BXW + ks * 8 * G::PLANE;
+      const float* p = hal + mt * MSTEP + ks * 8 * PLANE;
       split_tf32(p[0], ab[mt][ks][0], as[mt][ks][0]);
       split_tf32(p[8], ab[mt][ks][1], as[mt][ks][1]);
-      split_tf32(p[4 * G::PLANE], ab[mt][ks][2], as[mt][ks][2]);
-      split_tf32(p[4 * G::PLANE + 8], ab[mt][ks][3], as[mt][ks][3]);
+      split_tf32(p[4 * PLANE], ab[mt][ks][2], as[mt][ks][2]);
+      split_tf32(p[4 * PLANE + 8], ab[mt][ks][3], as[mt][ks][3]);
     }
   }
   wgmma_fence();
@@ -160,6 +190,22 @@ __device__ __forceinline__ void k_tile(float (&acc)[MT][BN / 2], const float* ha
     fence_regs(part[mt]);
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[mt][i] += part[mt][i];
+  }
+}
+
+// A k tile of `steps` live k-steps (1 to 4: the last chunk of an odd
+// channel count runs only its live ones).
+template <int MT, int BN, int PLANE, int MSTEP>
+__device__ __forceinline__ void k_tile_live(int steps, float (&acc)[MT][BN / 2],
+                                            const float* hal, uint64_t db, uint64_t ds) {
+  if (steps == 4) {
+    k_tile<MT, BN, 4, PLANE, MSTEP>(acc, hal, db, ds);
+  } else if (steps == 3) {
+    k_tile<MT, BN, 3, PLANE, MSTEP>(acc, hal, db, ds);
+  } else if (steps == 2) {
+    k_tile<MT, BN, 2, PLANE, MSTEP>(acc, hal, db, ds);
+  } else {
+    k_tile<MT, BN, 1, PLANE, MSTEP>(acc, hal, db, ds);
   }
 }
 
@@ -263,15 +309,7 @@ __global__ void __launch_bounds__(384, 1)
           const uint8_t* stage = sb + r * G::B_BYTES;
           const uint64_t db = desc_sw128(stage);
           const uint64_t ds = desc_sw128(stage + BN * 128);
-          if (steps == 4) {
-            k_tile<MT, BN, 4>(acc, hal, db, ds);
-          } else if (steps == 3) {
-            k_tile<MT, BN, 3>(acc, hal, db, ds);
-          } else if (steps == 2) {
-            k_tile<MT, BN, 2>(acc, hal, db, ds);
-          } else {
-            k_tile<MT, BN, 1>(acc, hal, db, ds);
-          }
+          k_tile_live<MT, BN, G::PLANE, 4 * G::BXW>(steps, acc, hal, db, ds);
           mbar_arrive(&b_empty[r]);
         }
         mbar_arrive(&a_empty[s]);
@@ -300,6 +338,178 @@ __global__ void __launch_bounds__(384, 1)
         }
       }
     }
+  }
+}
+
+// ------------------------------------------------------------- flat (1x1)
+
+struct FlatArgs {
+  int C, HW, N, ntn, nchunks, per_image;  // per_image: pixel blocks of an image
+  long long ntiles;
+  const float* bias;  // (N,) or null
+};
+
+template <int MT, int BN, int SB>
+struct FlatGeo {
+  static constexpr int HALF = 64 * MT;      // flat pixels of one consumer warpgroup
+  static constexpr int TM = 2 * HALF;       // flat pixels of a tile
+  static constexpr int PLANE = HALF + 8;    // floats of one channel of a warpgroup's box
+  static constexpr int BOX_BYTES = KC * PLANE * 4;
+  static constexpr int A_BYTES = 2 * BOX_BYTES;  // both warpgroups' boxes
+  static constexpr int B_BYTES = 2 * BN * 128;   // big and small parts
+  static constexpr int OUT_BYTES = BN * HALF * 4;  // a warpgroup's output box
+  static constexpr int BYTES = 1024 + SB * (A_BYTES + B_BYTES) + 2 * OUT_BYTES + 16 * SB;
+  static_assert(PLANE % 32 == 8 || PLANE % 32 == 24, "a warp's loads hit 32 banks");
+  static_assert(BOX_BYTES % 128 == 0 && A_BYTES % 1024 == 0 && B_BYTES % 1024 == 0 &&
+                    OUT_BYTES % 1024 == 0,
+                "128-byte aligned boxes, 1024-byte aligned stages");
+  static_assert(BYTES <= 232448, "shared memory");
+};
+
+// TMA stores: a box of shared memory to the tensor (what lies outside it
+// is not written), in bulk groups waited for by the issuing thread
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until this thread's stores have read their shared memory (READ) or
+// are complete
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// y = x (B, C, HW) times w^T per image, plus bias: stage s of the ring holds
+// chunk k's two activation boxes and its weight stage, on one barrier; each
+// consumer warpgroup writes its output tile into its own box of shared
+// memory, which one TMA store copies out while the next tile runs.
+template <int MT, int BN, int SB>
+__global__ void __launch_bounds__(384, 1)
+    conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap tma_x,
+                          const __grid_constant__ CUtensorMap tma_w,
+                          const __grid_constant__ CUtensorMap tma_y, const FlatArgs p) {
+  using G = FlatGeo<MT, BN, SB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sa = smem;
+  uint8_t* sb = smem + SB * G::A_BYTES;
+  uint8_t* so = sb + SB * G::B_BYTES;  // two output boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(so + 2 * G::OUT_BYTES);
+  uint64_t* empty = full + SB;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int k = 0;  // chunks issued by this block
+      for (long long t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+        const int n0 = static_cast<int>(t % p.ntn) * BN;
+        const int blk = static_cast<int>(t / p.ntn);
+        const int b = blk / p.per_image;
+        const int p0 = (blk - b * p.per_image) * G::TM;
+        // the second warpgroup's box lies past H W in an image's last tile
+        // of at most 64 MT pixels: not loaded, its rows not stored
+        const bool two = p0 + G::HALF < p.HW;
+        for (int c = 0; c < p.nchunks; ++c, ++k) {
+          const int s = k % SB;
+          if (k >= SB) mbar_wait(&empty[s], ((k / SB) - 1) & 1);
+          mbar_expect_tx(&full[s], (two ? G::A_BYTES : G::BOX_BYTES) + G::B_BYTES);
+          uint8_t* a = sa + s * G::A_BYTES;
+          tma_load_3d(a, &tma_x, &full[s], p0, c * KC, b);
+          if (two) tma_load_3d(a + G::BOX_BYTES, &tma_x, &full[s], p0 + G::HALF, c * KC, b);
+          tma_load_4d(sb + s * G::B_BYTES, &tma_w, &full[s], c * KC, n0, 0, 0);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lt = tid & 127;
+    const int warp = lt >> 5;
+    const int lane = lt & 31;
+    const int g = lane >> 2;   // fragment row: pixels g and g + 8
+    const int tig = lane & 3;  // fragment column: channels tig and tig + 4
+    // the thread's element of its warpgroup's box: channel tig, pixel
+    // warp * 16 + g of accumulator 0
+    const int lane_off = wg * (G::BOX_BYTES / 4) + tig * G::PLANE + warp * 16 + g;
+    // its warpgroup's output box (BN channels x HALF pixels), its element
+    float* const obox = reinterpret_cast<float*>(so + wg * G::OUT_BYTES);
+    float* const own = obox + 2 * tig * G::HALF + warp * 16 + g;
+    float acc[MT][BN / 2];
+    int k = 0;
+    for (long long t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+      const int n0 = static_cast<int>(t % p.ntn) * BN;
+      const int blk = static_cast<int>(t / p.ntn);
+      const int b = blk / p.per_image;
+      const int p0 = (blk - b * p.per_image) * G::TM;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+      }
+      for (int c = 0; c < p.nchunks; ++c, ++k) {
+        const int s = k % SB;
+        mbar_wait(&full[s], (k / SB) & 1);
+        const float* box = reinterpret_cast<const float*>(sa + s * G::A_BYTES) + lane_off;
+        const uint8_t* stage = sb + s * G::B_BYTES;
+        const int live = p.C - c * KC;
+        const int steps = live >= KC ? 4 : (live + 7) / 8;
+        k_tile_live<MT, BN, G::PLANE, 64>(steps, acc, box, desc_sw128(stage),
+                                          desc_sw128(stage + BN * 128));
+        mbar_arrive(&empty[s]);
+      }
+
+      // epilogue: acc[mt][jn * 4 + h * 2 + e] is flat pixel mt * 64 + warp *
+      // 16 + g + 8 h of the warpgroup's, channel jn * 8 + 2 tig + e. Into the
+      // output box once the last tile's store has read it, then stored by
+      // TMA (pixels past H W and channels past N are not written).
+      if (lt == 0) tma_store_wait<true>();
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int jn = 0; jn < BN / 8; ++jn) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + jn * 8 + 2 * tig + e;
+          const float bias = p.bias != nullptr && n < p.N ? __ldg(p.bias + n) : 0.f;
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              own[(jn * 8 + e) * G::HALF + mt * 64 + 8 * h] = acc[mt][jn * 4 + h * 2 + e] + bias;
+          }
+        }
+      }
+      fence_async_shared();
+      warpgroup_sync(wg);
+      const int q0 = p0 + wg * G::HALF;
+      if (lt == 0 && q0 < p.HW) tma_store_3d(&tma_y, obox, q0, n0, b);
+    }
+    if (lt == 0) tma_store_wait<false>();
   }
 }
 
@@ -357,6 +567,24 @@ bool encode_w(CUtensorMap* map, const void* w, int taps, int N, int Cp, int bn) 
   return true;
 }
 
+// An NCHW float32 tensor of B images of C channels and HW pixels as (HW, C,
+// B), in boxes of bw flat pixels x bc channels of one image: TMA loads
+// zero-fill, and stores do not write, what lies past HW or C.
+bool encode_flat(CUtensorMap* map, const void* t, int B, int C, int HW, int bw, int bc) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HW), static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HW) * 4,
+                                 static_cast<cuuint64_t>(HW) * C * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bc), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(t), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 0;
@@ -386,6 +614,27 @@ cudaError_t launch(const void* x, const void* w, int B, ConvArgs p, int Cp, int 
   const int cap = grid_cap > 0 ? grid_cap : sm_count();
   const unsigned grid = static_cast<unsigned>(p.ntiles < cap ? p.ntiles : cap);
   conv_tf32x3_kernel<MT, BN, SB><<<grid, 384, G::BYTES, stream>>>(mx, mw, p);
+  return cudaGetLastError();
+}
+
+template <int MT, int BN, int SB>
+cudaError_t launch_flat(const void* x, const void* w, void* out, int B, FlatArgs p, int Cp,
+                        int grid_cap, cudaStream_t stream) {
+  using G = FlatGeo<MT, BN, SB>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv1x1_tf32x3_kernel<MT, BN, SB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mx, mw, my;
+  if (!encode_flat(&mx, x, B, p.C, p.HW, G::PLANE, KC) || !encode_w(&mw, w, 1, p.N, Cp, BN) ||
+      !encode_flat(&my, out, B, p.N, p.HW, G::HALF, BN))
+    return cudaErrorInvalidValue;
+  p.per_image = (p.HW + G::TM - 1) / G::TM;
+  p.ntn = (p.N + BN - 1) / BN;
+  p.ntiles = static_cast<long long>(B) * p.per_image * p.ntn;
+  const int cap = grid_cap > 0 ? grid_cap : sm_count();
+  const unsigned grid = static_cast<unsigned>(p.ntiles < cap ? p.ntiles : cap);
+  conv1x1_tf32x3_kernel<MT, BN, SB><<<grid, 384, G::BYTES, stream>>>(mx, mw, my, p);
   return cudaGetLastError();
 }
 
@@ -431,6 +680,35 @@ extern "C" int s2m2_conv_tf32x3(const void* x, const void* w, const void* bias, 
   if (mt == MT && bn == BN && sb == SB) return launch<MT, BN, SB>(x, w, B, p, Cp, grid_cap, s);
   S2M2_CONV_INSTANCES(S2M2_CONV_CASE)
 #undef S2M2_CONV_CASE
+  return cudaErrorInvalidValue;  // a plan this build was not compiled for
+}
+
+// y = conv2d(x, w) + bias for a 1x1 w, stride 1, no padding, by split TF32
+// on the flat path. x: NCHW float32 (B, C, H, W) with HW = H W a multiple
+// of 4, 16-byte aligned; w: the split weight (1, 2, N, Cp) float32, Cp >= C
+// a multiple of 4; bias (N,) or null; out (B, N, H, W). (mt, bn, sb): the
+// flat instance, from the wrapper's plan; grid_cap as above.
+extern "C" int s2m2_conv1x1_tf32x3(const void* x, const void* w, const void* bias, void* out,
+                                   int B, int C, int HW, int N, int Cp, int mt, int bn,
+                                   int sb, int grid_cap, void* stream) {
+  if (B < 1 || C < 1 || HW < 1 || HW % 4 != 0 || N < 1 || Cp < C || Cp % 4 != 0 ||
+      !aligned16(x) || !aligned16(w) || !aligned16(out) || grid_cap < 0 ||
+      static_cast<long long>(B) * N * HW >= (1LL << 40) ||
+      static_cast<long long>(B) * C * HW >= (1LL << 40))
+    return cudaErrorInvalidValue;
+  FlatArgs p;
+  std::memset(&p, 0, sizeof(p));
+  p.C = C;
+  p.HW = HW;
+  p.N = N;
+  p.nchunks = (C + KC - 1) / KC;
+  p.bias = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define S2M2_CONV1X1_CASE(MT, BN, SB) \
+  if (mt == MT && bn == BN && sb == SB)   \
+    return launch_flat<MT, BN, SB>(x, w, out, B, p, Cp, grid_cap, s);
+  S2M2_CONV1X1_INSTANCES(S2M2_CONV1X1_CASE)
+#undef S2M2_CONV1X1_CASE
   return cudaErrorInvalidValue;  // a plan this build was not compiled for
 }
 

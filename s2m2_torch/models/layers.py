@@ -22,9 +22,10 @@ weights (I, O, kh, kw), linear weights (out, in). Numerics follow
   the bands. Everything else is row-local. With no band context the code
   is the one-device code;
 - on the float path a Conv whose input is float32 on the card, with no
-  gradient wanted, a spatial kernel and stride 1 runs on kernel G
-  (`ops.conv.route`: split TF32 on the tensor cores, float32 accuracy)
-  where `ops.conv.plan` takes the shape; every other conv is F.conv2d.
+  gradient wanted and stride 1 runs on kernel G (`ops.conv.route`: split
+  TF32 on the tensor cores, float32 accuracy; a 1x1 kernel on G's flat
+  path) where `ops.conv.plan` takes the shape; every other conv is
+  F.conv2d.
   The split weight G reads is made on first use and kept on the module
   until the weight changes (`Conv.g_weight`). Each float32 CUDA conv adds
   its operations to the counter `conv.own_flops` (G) or

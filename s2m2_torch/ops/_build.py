@@ -48,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"scanline_attention": 0, "scanline_cross_attention": 0,
                  "fused_correlation_ot": 0, "fused_basic_attn_block": 0,
                  "int8_quantize_pack": 0, "int8_gemm": 0, "bf16_gemm": 0,
-                 "int8_attention": 0, "conv_tf32x3": 0}
+                 "int8_attention": 0, "conv_tf32x3": 0, "conv1x1_tf32x3": 0}
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Float32 spatial convolutions by split TF32 on the tensor cores: kernel G.
+"""Float32 convolutions by split TF32 on the tensor cores: kernel G.
 
 `conv_tf32x3(x, w_split, bias, kh, kw, ph, pw)` is conv2d(x, w) + bias
 with stride 1, dilation 1 and groups 1 on an NCHW float32 input, where
@@ -8,7 +8,9 @@ zero-padded to Cp, a multiple of 4. Each product is three TF32 products,
 small * big, big * small, big * big, summed in float32: a float32 result
 (big is x rounded to TF32, to nearest with ties away as `cvt.rna`; small
 is x - big rounded the same way). On a CUDA tensor the wrapper launches
-`csrc/conv_tf32x3.cu` (and counts the launch); on a CPU tensor it runs the
+`csrc/conv_tf32x3.cu` (and counts the launch: `conv_tf32x3` for a spatial
+kernel, `conv1x1_tf32x3` for a 1x1 one, which runs on the kernel's flat
+path, `s2m2_conv1x1_tf32x3`); on a CPU tensor it runs the
 plain version beside it, which sums the three products as three float32
 convolutions, in another order than the kernel's k-steps. While
 torch.export traces, and on meta tensors, the call goes through the custom
@@ -18,15 +20,17 @@ one.
 
 `route(x, weight, stride, padding)` is the rule `models/layers.py Conv`
 follows: G takes a float32 CUDA input that no gradient is wanted for,
-with a float32 weight of a spatial kernel (kh * kw > 1) and stride 1
-(the model's convs all have groups 1 and dilation 1), where `plan`
-accepts the shape; every other conv keeps
+with a float32 weight and stride 1 (the model's convs all have groups 1
+and dilation 1), where `plan` accepts the shape; every other conv keeps
 F.conv2d (cuDNN on the card). `plan(shape)` is pure Python: it picks the
-kernel's instance (`_INSTANCES`) for a shape, or refuses the shapes the
-kernel does not take (a kernel above 3 x 3, a row of pixels that is not a
-multiple of 16 bytes, which TMA cannot stride) or that gain nothing on the
-tensor cores (fewer than 16 input or 32 output channels, where a tile
-would be mostly zeros).
+kernel's instance for a shape, a spatial one (`_INSTANCES`: tiles of 8 MT
+output rows x 16 columns) or, for a 1x1 kernel, a flat one
+(`_FLAT_INSTANCES`: tiles of 128 MT pixels taken flat over H W), by the
+weight's shape alone; or it refuses the shapes the kernel does not take (a
+kernel above 3 x 3, a 1x1 with padding, a row of pixels, or for a 1x1 an
+image's plane, that is not a multiple of 16 bytes, which TMA cannot
+stride) or that gain nothing on the tensor cores (fewer than 16 input or
+32 output channels, where a tile would be mostly zeros).
 """
 from __future__ import annotations
 
@@ -53,16 +57,25 @@ _INSTANCES = {(1, 128): 4, (2, 64): 6, (1, 64): 8}
 # the relative rate of each instance's tiles (larger tiles load less a
 # product), which the plan weighs against the rounds of the persistent grid
 _RATE = {(1, 128): 1.0, (2, 64): 0.85, (1, 64): 0.75}
+# The flat instances of 1x1 convs, (MT, N tile) -> stages. A tile is 128 MT
+# pixels taken flat over H W (each consumer warpgroup's 64 MT one TMA box
+# of 64 MT + 8 pixels x 32 channels) by the N tile; a stage holds a
+# 32-channel chunk's two boxes and both weight parts; each warpgroup's
+# output box (N tile x 64 MT pixels) sits beside the stages
+_FLAT_INSTANCES = {(1, 128): 3, (2, 64): 3, (1, 64): 5}
+_FLAT_RATE = {(1, 128): 1.0, (2, 64): 0.95, (1, 64): 0.75}
 
 
 class Plan(NamedTuple):
-    """The instance for one shape: MT, the N tile, the B stages, the output
-    tiles and the rounds of the persistent grid they take."""
+    """The instance for one shape: MT, the N tile, the B stages (the ring's
+    stages on the flat path), the output tiles and the rounds of the
+    persistent grid they take, and whether it is a flat instance."""
     mt: int
     bn: int
     sb: int
     tiles: int
     rounds: int
+    flat: bool = False
 
 
 def smem_bytes(mt, bn, sb):
@@ -72,6 +85,15 @@ def smem_bytes(mt, bn, sb):
     return 1024 + 2 * 32 * 24 * (8 * mt + 3) * 4 + sb * 2 * bn * 128 + 16 * (2 + sb)
 
 
+def flat_smem_bytes(mt, bn, sb):
+    """Shared bytes of one flat block (`FlatGeo<MT, BN, SB>::BYTES`): SB
+    stages of two boxes of (64 MT + 8) pixels x 32 channels and both weight
+    parts, two output boxes of BN channels x 64 MT pixels, the barriers and
+    the alignment slack."""
+    return (1024 + sb * (2 * 32 * (64 * mt + 8) * 4 + 2 * bn * 128) + 2 * bn * 64 * mt * 4
+            + 16 * sb)
+
+
 def out_hw(h, w, kh, kw, ph, pw):
     return h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
 
@@ -79,30 +101,40 @@ def out_hw(h, w, kh, kw, ph, pw):
 def plan(shape) -> Optional[Plan]:
     """The instance that runs a conv of `shape` = (b, c, h, w, n, kh, kw, ph,
     pw) (input (b, c, h, w), n output channels, kernel (kh, kw), padding
-    (ph, pw), stride 1), or None where G does not take it. Among the
-    instances, the least rounds of the grid x tile work / `_RATE`, the
-    larger tile on a tie."""
+    (ph, pw), stride 1), or None where G does not take it: a flat instance
+    for a 1x1 kernel, a spatial one otherwise. Among the instances, the
+    least rounds of the grid x tile work / rate, the larger tile on a
+    tie."""
     b, c, h, w, n, kh, kw, ph, pw = shape
-    ho, wo = out_hw(h, w, kh, kw, ph, pw)
-    if (kh * kw < 2 or kh > 3 or kw > 3 or ph < 0 or pw < 0 or w % 4 or c < MIN_CIN
-            or n < MIN_COUT or b < 1 or ho < 1 or wo < 1):
+    if c < MIN_CIN or n < MIN_COUT or b < 1:
         return None
+    if kh == kw == 1:
+        if ph or pw or h < 1 or w < 1 or h * w % 4:
+            return None
+        return _cheapest(_FLAT_INSTANCES, _FLAT_RATE, True,
+                         lambda mt, bn: b * math.ceil(h * w / (128 * mt)) * math.ceil(n / bn))
+    ho, wo = out_hw(h, w, kh, kw, ph, pw)
+    if kh > 3 or kw > 3 or ph < 0 or pw < 0 or w % 4 or ho < 1 or wo < 1:
+        return None
+    return _cheapest(_INSTANCES, _RATE, False, lambda mt, bn: b * math.ceil(ho / (8 * mt))
+                     * math.ceil(wo / 16) * math.ceil(n / bn))
+
+
+def _cheapest(instances, rate, flat, tiles_of) -> Plan:
     best = None
-    for (mt, bn), sb in _INSTANCES.items():
-        tiles = b * math.ceil(ho / (8 * mt)) * math.ceil(wo / 16) * math.ceil(n / bn)
+    for (mt, bn), sb in instances.items():
+        tiles = tiles_of(mt, bn)
         rounds = math.ceil(tiles / SMS)
-        cost = rounds * mt * bn / _RATE[(mt, bn)]
-        key = (cost, -mt * bn)
+        key = (rounds * mt * bn / rate[(mt, bn)], -mt * bn)
         if best is None or key < best[0]:
-            best = (key, Plan(mt, bn, sb, tiles, rounds))
+            best = (key, Plan(mt, bn, sb, tiles, rounds, flat))
     return best[1]
 
 
 def route(x, weight, stride=1, padding=(0, 0)) -> Optional[Plan]:
     """G's plan for a conv (groups 1, dilation 1, as every Conv of the
     model), or None where it stays on F.conv2d: only a float32 CUDA input
-    with a float32 weight, no gradient wanted, a spatial kernel and stride
-    1 takes G."""
+    with a float32 weight, no gradient wanted and stride 1 takes G."""
     if not (x.is_cuda and x.dtype == torch.float32 and weight.dtype == torch.float32
             and x.dim() == 4 and weight.dim() == 4):
         return None
@@ -198,23 +230,37 @@ def _entry():
                         (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 14)
 
 
+def _flat_entry():
+    return _build.entry("conv_tf32x3", "s2m2_conv1x1_tf32x3",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9)
+
+
 def _kernel(x, w_split, bias, kh, kw, ph, pw, p=None, grid_cap=0):
-    """G's direct launch on a contiguous CUDA x (no gradient); p: the
-    instance, `plan`'s by default; grid_cap > 0 caps the persistent grid
-    (the card test walks every tile with one block)."""
+    """G's direct launch on a contiguous CUDA x (no gradient), on the flat
+    path for a 1x1 kernel; p: the instance, `plan`'s by default; grid_cap >
+    0 caps the persistent grid (the card test walks every tile with one
+    block)."""
     b, c, h, w = x.shape
     n, cp = w_split.shape[2:]
     if p is None:
         p = plan((b, c, h, w, n, kh, kw, ph, pw))
         if p is None:
             raise ValueError(f"conv_tf32x3: no instance takes {(b, c, h, w, n, kh, kw)}")
+    if p.flat != (kh == kw == 1):
+        raise ValueError(f"conv_tf32x3: a {'flat' if p.flat else 'spatial'} instance for a "
+                         f"{kh}x{kw} kernel")
     if not x.is_contiguous() or not w_split.is_contiguous() or x.data_ptr() % 16 \
             or w_split.data_ptr() % 16:
         raise ValueError("conv_tf32x3: x and w_split must be contiguous, 16-byte aligned")
     out = torch.empty(out_shape(x, w_split, kh, kw, ph, pw), dtype=x.dtype, device=x.device)
-    _build.call(_entry(), x.device, "conv_tf32x3", x.data_ptr(), w_split.data_ptr(),
-                0 if bias is None else bias.contiguous().data_ptr(), out.data_ptr(),
-                b, c, h, w, n, cp, kh, kw, ph, pw, p.mt, p.bn, p.sb, grid_cap)
+    ptrs = (x.data_ptr(), w_split.data_ptr(),
+            0 if bias is None else bias.contiguous().data_ptr(), out.data_ptr())
+    if p.flat:
+        _build.call(_flat_entry(), x.device, "conv1x1_tf32x3", *ptrs,
+                    b, c, h * w, n, cp, p.mt, p.bn, p.sb, grid_cap)
+    else:
+        _build.call(_entry(), x.device, "conv_tf32x3", *ptrs,
+                    b, c, h, w, n, cp, kh, kw, ph, pw, p.mt, p.bn, p.sb, grid_cap)
     return out
 
 
@@ -252,11 +298,15 @@ def _wgmma_struct(bn):
 
 def instances_header() -> str:
     """The C header csrc/conv_tf32x3.cu includes from the build directory:
-    `_INSTANCES` as the X-macro list S2M2_CONV_INSTANCES, X(MT, N tile, B
-    stages), and the wgmma wrapper of each N tile."""
-    lines = ["// Generated from _INSTANCES in s2m2_torch/ops/conv.py.", "#pragma once",
-             "#include <stdint.h>", "template <int BN> struct WgmmaTF32;"]
-    lines += [_wgmma_struct(bn) for bn in sorted({bn for _, bn in _INSTANCES})]
-    cases = " ".join(f"X({mt}, {bn}, {sb})" for (mt, bn), sb in sorted(_INSTANCES.items()))
-    lines.append(f"#define S2M2_CONV_INSTANCES(X) {cases}")
+    `_INSTANCES` and `_FLAT_INSTANCES` as the X-macro lists
+    S2M2_CONV_INSTANCES and S2M2_CONV1X1_INSTANCES, X(MT, N tile, stages),
+    and the wgmma wrapper of each N tile."""
+    lines = ["// Generated from _INSTANCES and _FLAT_INSTANCES in s2m2_torch/ops/conv.py.",
+             "#pragma once", "#include <stdint.h>", "template <int BN> struct WgmmaTF32;"]
+    lines += [_wgmma_struct(bn) for bn in sorted({bn for _, bn in (*_INSTANCES,
+                                                                   *_FLAT_INSTANCES)})]
+    for macro, table in (("S2M2_CONV_INSTANCES", _INSTANCES),
+                         ("S2M2_CONV1X1_INSTANCES", _FLAT_INSTANCES)):
+        cases = " ".join(f"X({mt}, {bn}, {sb})" for (mt, bn), sb in sorted(table.items()))
+        lines.append(f"#define {macro}(X) {cases}")
     return "\n".join(lines) + "\n"

@@ -1,8 +1,9 @@
-"""Kernel G (`s2m2_torch.ops.conv`): the split-TF32 float32 conv, its plan,
-the route `models/layers.py Conv` takes to it, the weight split it reads,
-its custom op and counters. The kernel itself runs only on a card (the
-last test here, skipped without one; chip_smoke.py's `phase_conv` holds it
-at every routed shape of S and XL). This file imports no JAX:
+"""Kernel G (`s2m2_torch.ops.conv`): the split-TF32 float32 conv, its plan
+(spatial and flat instances), the route `models/layers.py Conv` takes to
+it, the weight split it reads, its custom op and counters. The kernel
+itself runs only on a card (the last two tests here, skipped without one;
+chip_smoke.py's `phase_conv` holds it at every routed shape of S, XL and
+RAFT-Stereo). This file imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_conv_tf32x3.py -q
 """
@@ -51,9 +52,16 @@ def _rel_err(y, x, wt, bias, ph, pw):
 SHAPES = [(1, 130, 12, 20, 64, 3, 3, 1, 1), (1, 48, 10, 16, 40, 3, 1, 1, 0),
           (1, 40, 10, 16, 48, 1, 3, 0, 1), (1, 386, 6, 8, 32, 3, 3, 1, 1),
           (2, 64, 9, 12, 96, 3, 3, 0, 1)]
+# 1x1 on the flat path: XL's deepest K (1536 channels) and RAFT-Stereo's
+# 36; a flat tail inside one warpgroup's box (H W = 200), tails that leave
+# the second warpgroup's box empty (H W = 132, 300), an N tail, batch 2
+# and rows of 38 pixels (H W still a multiple of 4)
+FLAT_SHAPES = [(1, 1536, 8, 12, 64, 1, 1, 0, 0), (1, 36, 10, 20, 64, 1, 1, 0, 0),
+               (1, 64, 12, 11, 96, 1, 1, 0, 0), (1, 36, 10, 30, 64, 1, 1, 0, 0),
+               (2, 48, 6, 38, 40, 1, 1, 0, 0)]
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", SHAPES + FLAT_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_plain_version_is_float32_accurate_and_one_tf32_pass_is_not(shape):
     """The plain version of G (split by cvt.rna rounding, three products,
     float32 sums) within float32-level error of a float64 conv; the same
@@ -97,8 +105,9 @@ def test_split_weight_layout():
     assert ws[..., 5:].eq(0).all()
 
 
-# plan: (shape, instance or None). The model's own shapes (S and XL at
-# 1216x1024) and what the kernel does not take or gains nothing on
+# plan: (shape, instance or None). The model's own shapes (S, XL and
+# RAFT-Stereo at 1216x1024) and what the kernel does not take or gains
+# nothing on; a 1x1 kernel gets a flat instance (`_FLAT_INSTANCES`)
 PLANS = [
     ((1, 384, 256, 304, 384, 3, 3, 1, 1), (1, 128)),
     ((2, 384, 512, 608, 384, 3, 3, 1, 1), (1, 128)),
@@ -109,13 +118,24 @@ PLANS = [
     ((1, 128, 64, 76, 128, 3, 3, 1, 1), (1, 64)),
     ((1, 48, 1024, 1216, 48, 3, 3, 1, 1), (2, 64)),
     ((1, 384, 256, 304, 384, 3, 3, 0, 1), (1, 128)),   # a band: row padding 0
-    ((1, 384, 256, 304, 384, 1, 1, 0, 0), None),       # 1x1
+    ((1, 384, 256, 304, 384, 1, 1, 0, 0), (1, 128)),   # 1x1
     ((1, 2, 256, 304, 64, 3, 3, 1, 1), None),          # 2 input channels
     ((1, 384, 256, 304, 2, 3, 3, 1, 1), None),         # 2 output channels
     ((1, 128, 64, 38, 128, 3, 3, 1, 1), None),         # rows of 152 bytes
     ((1, 128, 64, 76, 128, 5, 5, 2, 2), None),         # 5x5
     ((1, 128, 3, 8, 128, 3, 3, 0, 0), (1, 64)),        # one output row
     ((1, 128, 2, 8, 128, 3, 3, 0, 0), None),           # no output row
+    ((2, 1536, 64, 76, 1536, 1, 1, 0, 0), (1, 128)),   # XL 1x1 at 1/16
+    ((1, 768, 32, 38, 768, 1, 1, 0, 0), (1, 64)),      # XL 1x1 at 1/32: rows of 152 bytes
+    ((2, 768, 256, 304, 768, 1, 1, 0, 0), (1, 128)),   # XL 1x1 at 1/4
+    ((1, 128, 256, 304, 128, 1, 1, 0, 0), (1, 128)),   # S 1x1
+    ((1, 256, 32, 38, 256, 1, 1, 0, 0), (1, 64)),      # S 1x1 at 1/32
+    ((1, 36, 256, 304, 64, 1, 1, 0, 0), (2, 64)),      # RAFT-Stereo's 36 -> 64
+    ((1, 256, 256, 304, 144, 1, 1, 0, 0), (2, 64)),    # RAFT-Stereo's 256 -> 144
+    ((1, 384, 10, 3, 384, 1, 1, 0, 0), None),          # 1x1, H W = 30: planes of 120 bytes
+    ((1, 9, 256, 304, 96, 1, 1, 0, 0), None),          # 1x1, 9 input channels
+    ((2, 16, 1024, 1216, 16, 1, 1, 0, 0), None),       # 1x1, 16 output channels
+    ((1, 384, 256, 304, 384, 1, 1, 0, 1), None),       # 1x1 with padding
 ]
 
 
@@ -125,19 +145,30 @@ def test_plan(shape, inst):
     if inst is None:
         assert p is None
         return
-    assert (p.mt, p.bn) == inst and p.sb == conv._INSTANCES[inst]
     b, c, h, w, n, kh, kw, ph, pw = shape
+    flat = kh == kw == 1
+    table = conv._FLAT_INSTANCES if flat else conv._INSTANCES
+    assert (p.mt, p.bn) == inst and p.sb == table[inst] and p.flat == flat
     ho, wo = conv.out_hw(h, w, kh, kw, ph, pw)
-    assert p.tiles == b * -(-ho // (8 * p.mt)) * -(-wo // 16) * -(-n // p.bn)
+    if flat:
+        assert p.tiles == b * -(-h * w // (128 * p.mt)) * -(-n // p.bn)
+    else:
+        assert p.tiles == b * -(-ho // (8 * p.mt)) * -(-wo // 16) * -(-n // p.bn)
     assert p.rounds == -(-p.tiles // conv.SMS)
 
 
 def test_instances_fit_and_the_header_lists_them():
     header = conv.instances_header()
-    for (mt, bn), sb in conv._INSTANCES.items():
-        assert conv.smem_bytes(mt, bn, sb) <= conv.MAX_SMEM
-        assert f"X({mt}, {bn}, {sb})" in header
-        assert f"m64n{bn}k8.f32.tf32.tf32" in header
+    lists = {line.split("(X)")[0]: line for line in header.splitlines() if "(X)" in line}
+    for macro, table, smem in (("#define S2M2_CONV_INSTANCES", conv._INSTANCES,
+                                conv.smem_bytes),
+                               ("#define S2M2_CONV1X1_INSTANCES", conv._FLAT_INSTANCES,
+                                conv.flat_smem_bytes)):
+        assert set(table) == set(conv._RATE if table is conv._INSTANCES else conv._FLAT_RATE)
+        for (mt, bn), sb in table.items():
+            assert smem(mt, bn, sb) <= conv.MAX_SMEM
+            assert f"X({mt}, {bn}, {sb})" in lists[macro]
+            assert f"m64n{bn}k8.f32.tf32.tf32" in header
 
 
 def _like(is_cuda=True, dtype=torch.float32, shape=(1, 32, 16, 16), requires_grad=False):
@@ -166,8 +197,15 @@ ROUTES = [
      1, (1, 1), False, False),
     ("cpu", _like(is_cuda=False), _like(is_cuda=False, shape=(64, 32, 3, 3)), 1, (1, 1),
      False, False),
-    ("1x1", _like(), _like(shape=(64, 32, 1, 1)), 1, (0, 0), False, False),
+    ("1x1", _like(), _like(shape=(64, 32, 1, 1)), 1, (0, 0), False, True),
     ("stride 2", _like(), _like(shape=(64, 32, 3, 3)), 2, (1, 1), False, False),
+    ("1x1 stride 2", _like(), _like(shape=(64, 32, 1, 1)), 2, (0, 0), False, False),
+    ("bf16 1x1", _like(dtype=torch.bfloat16), _like(dtype=torch.bfloat16, shape=(64, 32, 1, 1)),
+     1, (0, 0), False, False),
+    ("training 1x1: x requires grad", _like(requires_grad=True), _like(shape=(64, 32, 1, 1)),
+     1, (0, 0), True, False),
+    ("cpu 1x1", _like(is_cuda=False), _like(is_cuda=False, shape=(64, 32, 1, 1)), 1, (0, 0),
+     False, False),
     ("weight of another input width", _like(), _like(shape=(64, 16, 3, 3)), 1, (1, 1),
      False, False),
     ("plan refuses: 1 output channel", _like(), _like(shape=(1, 32, 3, 3)), 1, (1, 1),
@@ -197,8 +235,10 @@ FORWARDS = [
     ("fp32 3x1", torch.float32, torch.float32, (3, 1), 1, None, None, True),
     ("fp32 1x3", torch.float32, torch.float32, (1, 3), 1, None, None, True),
     ("fp32 3x3 padding 0", torch.float32, torch.float32, 3, 1, 0, None, True),
-    ("fp32 1x1", torch.float32, torch.float32, 1, 1, None, None, False),
+    ("fp32 1x1", torch.float32, torch.float32, 1, 1, None, None, True),
     ("fp32 3x3 stride 2", torch.float32, torch.float32, 3, 2, None, None, False),
+    ("fp32 1x1 stride 2", torch.float32, torch.float32, 1, 2, None, None, False),
+    ("bf16 1x1", torch.bfloat16, torch.bfloat16, 1, 1, None, None, False),
     ("bf16", torch.bfloat16, torch.bfloat16, 3, 1, None, None, False),
     ("bf16 x, fp32 island weight", torch.bfloat16, torch.float32, 3, 1, None, None, False),
     ("int8 observe, bf16", torch.bfloat16, torch.bfloat16, 3, 1, None, "observe", False),
@@ -270,7 +310,7 @@ def test_cpu_convs_stay_plain_and_uncounted():
     after = trace.counters()
     assert after.get("conv.own_flops", 0) == before.get("conv.own_flops", 0)
     assert after.get("conv.library_flops", 0) == before.get("conv.library_flops", 0)
-    assert _build.launch_counts["conv_tf32x3"] == 0
+    assert _build.launch_counts["conv_tf32x3"] == _build.launch_counts["conv1x1_tf32x3"] == 0
 
 
 def test_weight_split_is_cached_and_rebuilt_after_an_in_place_update():
@@ -326,6 +366,8 @@ def test_opcheck():
     x, wt, bias = _operands(shape, seed=4)
     opcheck(OPS.conv_tf32x3.default, (x, conv.split_weight(wt), bias, 3, 3, 1, 1))
     opcheck(OPS.conv_tf32x3.default, (x, conv.split_weight(wt[:, :, :1]), None, 1, 3, 0, 1))
+    opcheck(OPS.conv_tf32x3.default, (x, conv.split_weight(wt[:, :, 1:2, 1:2]), bias, 1, 1, 0,
+                                      0))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -364,3 +406,25 @@ def test_kernel_matches_float64_on_card(cuda, shape):
             assert _rel_err(y, x, wt, bias, ph, pw) < BOUND, (mt, bn, cap)
     y = conv.conv_tf32x3(x, ws, bias, kh, kw, ph, pw)
     assert torch.equal(y, OPS.conv_tf32x3(x, ws, bias, kh, kw, ph, pw))
+
+
+@pytest.mark.parametrize("shape", FLAT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flat_kernel_matches_float64_on_card(cuda, shape):
+    """G's flat path on the card within the float32-level bound of a float64
+    conv, at every flat instance, with a full grid and with one block
+    walking every tile; the wrapper counts it as `conv1x1_tf32x3`, and the
+    custom op's launch equals the direct one bitwise."""
+    x, wt, bias = (t.to(cuda) for t in _operands(shape))
+    ws = conv.split_weight(wt)
+    for (mt, bn), sb in conv._FLAT_INSTANCES.items():
+        for cap in (0, 1):
+            y = conv._kernel(x, ws, bias, 1, 1, 0, 0, conv.Plan(mt, bn, sb, 0, 0, True), cap)
+            assert _rel_err(y, x, wt, bias, 0, 0) < BOUND, (mt, bn, cap)
+    before = dict(_build.launch_counts)
+    y = conv.conv_tf32x3(x, ws, bias, 1, 1, 0, 0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["conv1x1_tf32x3"] == before["conv1x1_tf32x3"] + 1
+    assert _build.launch_counts["conv_tf32x3"] == before["conv_tf32x3"]
+    assert torch.equal(y, OPS.conv_tf32x3(x, ws, bias, 1, 1, 0, 0))
+    with pytest.raises(ValueError):  # a spatial instance for a 1x1 kernel
+        conv._kernel(x, ws, bias, 1, 1, 0, 0, conv.Plan(1, 128, 4, 0, 0))
